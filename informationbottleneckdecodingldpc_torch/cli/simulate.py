@@ -1,0 +1,91 @@
+"""Run a BER sweep of the IB decoder on the all-zeros chain.
+
+Reduced port of ``cli/simulate.py``: one ``run_point`` per Eb/N0 from
+``--start-db`` to ``--max-db`` in steps of ``--step-db``; after each point
+the results file is rewritten as ``{"points": [...]}`` with the JAX engine's
+point keys. Sweep resume is not ported yet. The default device is ``cuda``;
+without a card the run raises.
+
+Usage:
+  python -m informationbottleneckdecodingldpc_torch.cli.simulate \
+      --model wlan-1296 --config results/configs/wlan_T16_0.8.npz \
+      --start-db 0.8 --max-db 1.6 --step-db 0.4 --results wlan_ib.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from ..construct import DecoderConfig
+from ..decode import DeviceTrellis
+from ..models import get_model
+from ..sim import BERSimulator
+from ..sim.engine import resolve_device
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
+    p.add_argument("--model", required=True)
+    p.add_argument("--decoder", choices=["ib"], default="ib")
+    p.add_argument("--config", required=True, help="decoder config .npz")
+    p.add_argument("--chain", choices=["allzero"], default="allzero")
+    p.add_argument("--start-db", type=float, default=0.0)
+    p.add_argument("--max-db", type=float, default=None)
+    p.add_argument("--step-db", type=float, default=0.1)
+    p.add_argument("--min-errors", type=int, default=None)
+    p.add_argument("--max-blocks-per-point", type=int, default=10_000_000)
+    p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--batch-per-device", type=int, default=None)
+    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--results", required=True, help="JSON results file")
+    args = p.parse_args(argv)
+
+    device = resolve_device(args.device)
+    spec = get_model(args.model)
+    cfg = DecoderConfig.load(args.config)
+    sim = BERSimulator(
+        spec.make_layout(),
+        args.decoder,
+        trellis=DeviceTrellis.from_tables(cfg.tables, device),
+        device=device,
+        max_iters=args.max_iters or spec.decode_i_max,
+        chain=args.chain,
+        count_all_bits=spec.count_all_bits,
+        cardinality_t_channel=cfg.tables.cardinality_t_channel,
+        batch_per_device=args.batch_per_device or spec.batch_hint,
+        seed=args.seed,
+        steps_per_dispatch=args.steps_per_dispatch,
+    )
+    max_db = args.max_db if args.max_db is not None else spec.sweep_max_db
+    n_points = int(np.floor((max_db - args.start_db) / args.step_db + 1e-9)) + 1
+    points = []
+    for k in range(max(n_points, 0)):
+        ebn0 = round(args.start_db + k * args.step_db, 6)
+        r = sim.run_point(
+            ebn0,
+            min_errors=args.min_errors or spec.min_errors,
+            max_blocks=args.max_blocks_per_point,
+        )
+        points.append(r.to_dict())
+        print(
+            f"EbN0={ebn0:.2f} dB BER={r.ber:.3e} FER={r.fer:.3e} "
+            f"blocks={r.blocks} iters={r.mean_iterations:.2f}",
+            flush=True,
+        )
+        tmp = args.results + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"points": points}, f, indent=2)
+        os.replace(tmp, args.results)
+    return points
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source under ``csrc/`` has a plain C interface. At first CUDA use
+it is compiled with ``nvcc`` for ``sm_90a`` into a shared library and loaded
+with ``ctypes``. Libraries go to ``build/kernels/`` at the checkout's root
+(listed in ``.gitignore``), in a directory keyed by a hash of the source and
+the flags, so an edited source is rebuilt and an unchanged one is reused. A
+failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PACKAGE = Path(__file__).resolve().parents[1]
+CSRC = _PACKAGE / "csrc"
+BUILD_ROOT = _PACKAGE.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+@functools.cache
+def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
+    """Build (if needed) and load ``csrc/<name>.cu``.
+
+    Returns the library and a record of the build: ``seconds`` spent
+    compiling (0 when reused), ``path`` of the library and ``log``, the
+    compiler's register and shared-memory report."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out_dir = BUILD_ROOT / f"{name}-{digest}"
+    lib_path = out_dir / f"lib{name}.so"
+    log_path = out_dir / "nvcc.log"
+    seconds = 0.0
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # Compile to a private name and rename, so concurrent processes never
+        # load a half-written library.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+            capture_output=True,
+            text=True,
+        )
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed to build {src.name} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib_path)
+    log = log_path.read_text() if log_path.exists() else ""
+    lib = ctypes.CDLL(str(lib_path))
+    return lib, {"seconds": seconds, "path": str(lib_path), "log": log}

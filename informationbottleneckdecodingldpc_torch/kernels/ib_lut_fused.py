@@ -1,0 +1,315 @@
+"""Fused IB lookup-table decoder: the Hopper kernel K1 and its plain twin.
+
+Port of ``kernels/ib_lut_fused.py`` (``FusedIBDecoder``). For a CUDA tensor
+the decoder launches the hand-written kernel ``csrc/ib_lut_fused.cu`` (one
+CTA per tile of ``batch_tile`` codewords, both message views in shared
+memory, early exit per tile); for a CPU tensor it runs the plain twin
+:func:`ib_lut_decode_tiled`, which applies the whole-batch decoder to each
+zero-padded tile. The two agree bit for bit: outputs, per-codeword
+unsatisfied counts and the mean iteration count. No CUDA tensor ever reaches
+the twin, and a failed build or launch raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from ..construct.trellis import TrellisTables
+from ..decode.common import DecodeResult
+from ..decode.graph_arrays import DecodeLayout
+from ..decode.ib_lut import DeviceTrellis, ib_lut_decode
+
+# Dynamic shared memory one block may use on Hopper (227 KB).
+MAX_SHARED_BYTES = 232_448
+MAX_DEGREE = 16  # kMaxDegree in csrc/ib_lut_fused.cu
+BATCH_TILES = (32, 16, 8, 4, 2, 1)
+
+
+def _slot(t_channel: int, t_decoder: int) -> int:
+    return max(t_channel, t_decoder) ** 2
+
+
+def shared_bytes(
+    layout: DecodeLayout, batch_tile: int, t_channel: int, t_decoder: int
+) -> int:
+    """Shared memory of one CTA; mirrors ``shared_bytes`` in the .cu file:
+    per-codeword unsat counts (two int buffers), the CN and VN views and the
+    channel clusters as bytes, one iteration's CN and VN LUTs and alignment
+    rows."""
+    n_cn_slots = max(layout.d_c_max - 2, 1)
+    n_vn_slots = layout.d_v_max
+    return (
+        2 * 4 * batch_tile
+        + (2 * layout.n_edges + layout.n_vars) * batch_tile
+        + (n_cn_slots + n_vn_slots) * _slot(t_channel, t_decoder)
+        + (layout.d_c_max + layout.d_v_max) * t_decoder
+    )
+
+
+def pick_batch_tile(
+    layout: DecodeLayout, t_channel: int, t_decoder: int
+) -> int:
+    """Largest tile of 32/16/8/4/2/1 codewords whose CTA fits 227 KB."""
+    for bt in BATCH_TILES:
+        if shared_bytes(layout, bt, t_channel, t_decoder) <= MAX_SHARED_BYTES:
+            return bt
+    raise ValueError(
+        f"layout does not fit one CTA's shared memory even with one codeword "
+        f"({shared_bytes(layout, 1, t_channel, t_decoder)} bytes > "
+        f"{MAX_SHARED_BYTES}); codes this large need the global-memory kernel"
+    )
+
+
+def mean_iterations(per_codeword: torch.Tensor) -> torch.Tensor:
+    """Float32 mean of per-codeword iteration counts, computed as the JAX
+    package's ``jnp.mean`` is: the (exact) sum times the float32 reciprocal
+    of the count, so both report the same float bit for bit."""
+    # torch.full fills on the device; a tensor made from a host scalar
+    # would be a pageable copy that blocks the host until the stream drains.
+    inv = torch.full(
+        (), 1.0 / per_codeword.numel(), dtype=torch.float32,
+        device=per_codeword.device,
+    )
+    return per_codeword.to(torch.float32).sum() * inv
+
+
+def ib_lut_decode_tiled(
+    layout: DecodeLayout,
+    trellis: DeviceTrellis,
+    channel_clusters: torch.Tensor,
+    batch_tile: int,
+    max_iters: int | None = None,
+    early_exit: bool = True,
+) -> DecodeResult:
+    """Plain twin of K1: :func:`ib_lut_decode` on each zero-padded tile of
+    ``batch_tile`` columns (so each tile exits early on its own, padding
+    included); ``iterations`` is the mean over the real codewords."""
+    batch = channel_clusters.shape[-1]
+    pad = (-batch) % batch_tile
+    ch = torch.nn.functional.pad(channel_clusters, (0, pad))
+    outs, unsats, iters = [], [], []
+    for b0 in range(0, batch + pad, batch_tile):
+        r = ib_lut_decode(
+            layout,
+            trellis,
+            ch[:, b0 : b0 + batch_tile],
+            max_iters=max_iters,
+            early_exit=early_exit,
+        )
+        outs.append(r.outputs)
+        unsats.append(r.unsatisfied)
+        iters.append(r.iterations.expand(batch_tile))
+    return DecodeResult(
+        outputs=torch.cat(outs, dim=1)[:, :batch],
+        iterations=mean_iterations(torch.cat(iters)[:batch]),
+        unsatisfied=torch.cat(unsats)[:batch],
+    )
+
+
+class FusedIBDecoder:
+    """Tiled IB decoder: clusters [n_vars, batch] int32 -> DecodeResult.
+
+    ``batch_tile`` codewords share one CTA and exit together; the default is
+    the largest tile that fits shared memory. ``launches`` counts kernel
+    launches (the CPU twin does not count).
+    """
+
+    def __init__(
+        self,
+        layout: DecodeLayout,
+        tables: TrellisTables,
+        max_iters: int | None = None,
+        early_exit: bool = True,
+        use_matching: bool = True,
+        batch_tile: int | None = None,
+    ):
+        T, Tch = tables.cardinality_t_decoder, tables.cardinality_t_channel
+        if Tch > T or T > 256:
+            raise ValueError(
+                f"the kernel takes |T_ch| <= |T| <= 256, got {Tch}, {T}"
+            )
+        if layout.d_c_max > tables.d_c_max or layout.d_v_max > tables.d_v_max:
+            raise ValueError("code degrees exceed the tables' degrees")
+        degrees = [g.degree for g in layout.cn_groups + layout.vn_groups]
+        if max(degrees) > MAX_DEGREE or min(g.degree for g in layout.cn_groups) < 2:
+            raise ValueError(
+                f"the kernel takes node degrees up to {MAX_DEGREE} and check "
+                "degrees of at least 2"
+            )
+        self.layout = layout
+        self.tables = tables
+        self.imax = max_iters if max_iters is not None else tables.i_max
+        if self.imax > tables.i_max:
+            raise ValueError("max_iters exceeds constructed i_max")
+        self.early_exit = bool(early_exit)
+        self.use_matching = bool(use_matching)
+        if batch_tile is None:
+            batch_tile = pick_batch_tile(layout, Tch, T)
+        self.batch_tile = int(batch_tile)
+        self.launches = 0
+        self._trellis: dict[torch.device, DeviceTrellis] = {}
+        self._kernel_args: dict[torch.device, dict] = {}
+
+    def __call__(self, channel_clusters: torch.Tensor) -> DecodeResult:
+        device = channel_clusters.device
+        if device.type == "cpu":
+            return ib_lut_decode_tiled(
+                self.layout,
+                self.trellis(device),
+                channel_clusters,
+                self.batch_tile,
+                max_iters=self.imax,
+                early_exit=self.early_exit,
+            )
+        if device.type != "cuda":
+            raise ValueError(f"no kernel for device {device}")
+        return self._launch(channel_clusters)
+
+    def trellis(self, device: torch.device | str) -> DeviceTrellis:
+        """The plain decoder's tables on ``device`` (cached)."""
+        device = torch.device(device)
+        if device not in self._trellis:
+            self._trellis[device] = DeviceTrellis.from_tables(
+                self.tables, device, use_matching=self.use_matching
+            )
+        return self._trellis[device]
+
+    # -- kernel -----------------------------------------------------------
+    def _host_tables(self) -> dict[str, np.ndarray]:
+        """Tables laid out per DE iteration as uint8 slots of max(T,Tch)^2
+        bytes, each holding one LUT row-major with its own column count as
+        stride (Tch for the iteration-0 CN tables, T otherwise)."""
+        t = self.tables
+        T, Tch, i_max = t.cardinality_t_decoder, t.cardinality_t_channel, t.i_max
+        slot = _slot(Tch, T)
+        d_c, d_v = self.layout.d_c_max, self.layout.d_v_max
+        n_cn_slots = max(d_c - 2, 1)
+        cn = np.zeros((i_max, n_cn_slots, slot), np.uint8)
+        vn = np.zeros((i_max, d_v, slot), np.uint8)
+
+        def put(dst, lut):
+            flat = np.asarray(lut).reshape(-1)
+            dst[: flat.size] = flat
+
+        put(cn[0, 0], t.cn_iter0_first)
+        for l in range(d_c - 3):
+            put(cn[0, l + 1], t.cn_iter0_rest[l])
+        for k in range(1, i_max):
+            for l in range(d_c - 2):
+                put(cn[k, l], t.cn_rest[k - 1, l])
+        for i in range(i_max):
+            put(vn[i, 0], t.vn_first[i])
+            for l in range(d_v - 1):
+                put(vn[i, l + 1], t.vn_rest[i, l])
+        if self.use_matching and t.has_matching:
+            match_cn = np.asarray(t.matching_cn)[:, :d_c]
+            match_vn = np.asarray(t.matching_vn)[:, :d_v]
+        else:  # identity rows: no alignment
+            ident = np.arange(T)
+            match_cn = np.broadcast_to(ident, (i_max, d_c, T))
+            match_vn = np.broadcast_to(ident, (i_max, d_v, T))
+        return dict(
+            cn_tab=cn,
+            vn_tab=vn,
+            match_cn=np.ascontiguousarray(match_cn, dtype=np.uint8),
+            match_vn=np.ascontiguousarray(match_vn, dtype=np.uint8),
+        )
+
+    def _args(self, device: torch.device) -> dict:
+        if device not in self._kernel_args:
+            lay = self.layout
+            arrays = dict(self._host_tables())
+            arrays.update(
+                seed_var=lay.cn_edge_var,
+                node_var=lay.vn_node_order,
+                cn_route=lay.cn_to_vn_row,
+                vn_route=lay.vn_to_cn_row,
+                cn_groups=np.asarray(
+                    [(g.offset, g.num_nodes, g.degree) for g in lay.cn_groups],
+                    np.int32,
+                ),
+                vn_groups=np.asarray(
+                    [
+                        (g.offset, g.num_nodes, g.degree, off)
+                        for g, off in zip(
+                            lay.vn_groups,
+                            np.cumsum([0] + [g.num_nodes for g in lay.vn_groups]),
+                        )
+                    ],
+                    np.int32,
+                ),
+            )
+            self._kernel_args[device] = {
+                k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+                for k, v in arrays.items()
+            }
+        return self._kernel_args[device]
+
+    def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:
+        lay = self.layout
+        if channel_clusters.dtype != torch.int32:
+            raise TypeError("channel clusters must be int32")
+        if channel_clusters.dim() != 2 or channel_clusters.shape[0] != lay.n_vars:
+            raise ValueError(
+                f"channel clusters must be [{lay.n_vars}, batch], got "
+                f"{tuple(channel_clusters.shape)}"
+            )
+        lib = _library()
+        device = channel_clusters.device
+        ch = channel_clusters.contiguous()
+        batch = ch.shape[1]
+        a = self._args(device)
+        out = torch.empty((lay.n_vars, batch), dtype=torch.int32, device=device)
+        unsat = torch.empty(batch, dtype=torch.int32, device=device)
+        iters = torch.empty(batch, dtype=torch.int32, device=device)
+        t = self.tables
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.ib_lut_fused_decode(
+                ch.data_ptr(), out.data_ptr(), unsat.data_ptr(), iters.data_ptr(),
+                a["cn_tab"].data_ptr(), a["vn_tab"].data_ptr(),
+                a["match_cn"].data_ptr(), a["match_vn"].data_ptr(),
+                a["seed_var"].data_ptr(), a["node_var"].data_ptr(),
+                a["cn_route"].data_ptr(), a["vn_route"].data_ptr(),
+                a["cn_groups"].data_ptr(), a["vn_groups"].data_ptr(),
+                len(lay.cn_groups), len(lay.vn_groups), lay.n_vars, lay.n_edges,
+                batch, self.batch_tile,
+                t.cardinality_t_channel, t.cardinality_t_decoder,
+                max(lay.d_c_max - 2, 1), lay.d_v_max,
+                _slot(t.cardinality_t_channel, t.cardinality_t_decoder),
+                lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit),
+                stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                "ib_lut_fused launch failed: "
+                + lib.ib_lut_fused_error_string(err).decode()
+            )
+        self.launches += 1
+        return DecodeResult(
+            outputs=out,
+            iterations=mean_iterations(iters),
+            unsatisfied=unsat,
+        )
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """K1's library, built at first use, with its C signatures declared."""
+    from ._build import load_library
+
+    lib, _ = load_library("ib_lut_fused")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ib_lut_fused_decode.argtypes = [p] * 14 + [i] * 15 + [p]
+    lib.ib_lut_fused_decode.restype = i
+    lib.ib_lut_fused_error_string.argtypes = [i]
+    lib.ib_lut_fused_error_string.restype = ctypes.c_char_p
+    lib.ib_lut_fused_max_degree.argtypes = []
+    lib.ib_lut_fused_max_degree.restype = i
+    if lib.ib_lut_fused_max_degree() != MAX_DEGREE:
+        raise RuntimeError("csrc/ib_lut_fused.cu and MAX_DEGREE disagree")
+    return lib

@@ -1,0 +1,74 @@
+"""The headline throughput scenario and its timing.
+
+Port of ``utils/benchmarks.py``: WLAN 802.11n N=1296 R=1/2, the irregular IB
+decoder with message alignment (|T|=16, i_max=50, checked-in config
+``results/configs/wlan_T16_0.8.npz``), the fused kernel, all-zeros chain at
+0.8 dB, batch 4096 x 8 Monte-Carlo steps per dispatch. Metric: decoded coded
+bits/s per device, the median of timed dispatches after one warm-up.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+from pathlib import Path
+
+import torch
+
+HEADLINE = dict(
+    model="wlan-1296",
+    config="wlan_T16_0.8",
+    decoder="ib",
+    backend="fused",
+    chain="allzero",
+    batch=4096,
+    steps_per_dispatch=8,
+    ebn0_db=0.8,
+)
+
+CONFIG_DIR = Path(__file__).resolve().parents[2] / "results" / "configs"
+
+
+def measure_sim_throughput(sim, ebn0_db: float, dispatches: int = 6) -> float:
+    """Steady-state coded bits/s of a CUDA BERSimulator at one SNR point:
+    the median over ``dispatches`` timed dispatches, each ended by
+    ``torch.cuda.synchronize()``, after one warm-up dispatch."""
+    if sim.device.type != "cuda":
+        raise RuntimeError("throughput is measured on a CUDA device only")
+    qt = sim.quantizer_for(ebn0_db)
+
+    def run(i: int) -> None:
+        sim._step(ebn0_db, i * sim.steps_per_dispatch, qt)
+        torch.cuda.synchronize(sim.device)
+
+    run(1000)  # warm-up: kernel build and first launch
+    times = []
+    for i in range(dispatches):
+        t0 = time.perf_counter()
+        run(i)
+        times.append(time.perf_counter() - t0)
+    bits = sim.layout.n_vars * sim.batch_total * sim.steps_per_dispatch
+    return bits / statistics.median(times)
+
+
+def build_headline_sim(device: torch.device | str):
+    """The headline BERSimulator on ``device``."""
+    from ..construct import DecoderConfig
+    from ..decode import DeviceTrellis
+    from ..models import get_model
+    from ..sim import BERSimulator
+
+    spec = get_model(HEADLINE["model"])
+    cfg = DecoderConfig.load(str(CONFIG_DIR / f"{HEADLINE['config']}.npz"))
+    return BERSimulator(
+        spec.make_layout(),
+        HEADLINE["decoder"],
+        trellis=DeviceTrellis.from_tables(cfg.tables, device),
+        device=device,
+        cardinality_t_channel=cfg.tables.cardinality_t_channel,
+        chain=HEADLINE["chain"],
+        count_all_bits=False,
+        batch_per_device=HEADLINE["batch"],
+        seed=0,
+        steps_per_dispatch=HEADLINE["steps_per_dispatch"],
+    )
