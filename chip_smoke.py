@@ -1,20 +1,39 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main path, the headline BER simulation (WLAN 802.11n
-N=1296, IB decoder |T|=16 with message alignment, i_max=50, all-zeros chain,
-batch 4096 x 8 steps), through the fused CUDA kernel K1, and checks it:
+Drives the port's main paths through the fused CUDA kernels and checks them:
+the headline BER simulation (WLAN 802.11n N=1296, IB decoder |T|=16 with
+message alignment, i_max=50, all-zeros chain, batch 4096 x 8 steps) through
+K1, and the float decoders' cells (min-sum and BP on 16-level quantized
+LLRs, 2.0 dB, i_max 50, the same batch) and the encoded chain through K2.
 
 1. the card exists (else this raises); its name and power limit;
-2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc;
+2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it);
 3. K1 against its plain PyTorch twin on the same CUDA inputs, bit-exact:
    |T|=16 at 0.8 and 6.0 dB with early exit on and off, |T|=32 fixed;
 4. the headline simulation: coded Mbit/s, one kernel launch per Monte-Carlo
    step, FER and BER at 0.8 dB inside bands around the JAX package's
    reference curve, mean iterations at 0.8 and 2.4 dB;
-5. one decode at batch 4096 by K1 and by the twin, timed.
+5. one decode at batch 4096 by K1 and by the twin, timed;
+6. K2 built from ``csrc/float_fused.cu``: build time, registers and spills
+   of each rule's kernel;
+7. K2 against its plain twin on the same CUDA inputs, both rules, WLAN,
+   i_max 50, batch 512 (the last 5-codeword tile padded): quantized LLRs at
+   2.0 dB with early exit on and off, at 4.0 dB (tiles exit after different
+   bodies), true LLRs at 2.0 dB, and i_max 1. Outputs (``==``, so +0 == -0),
+   unsatisfied counts and mean iterations must be equal for min-sum and for
+   BP: K2 and torch on the card both take expf/log1pf from CUDA's math
+   library;
+8. the two float cells: coded Mbit/s and mean iterations, one K2 launch per
+   Monte-Carlo step;
+9. the encoded chain against the JAX package's reference curves, 32768
+   blocks each: min-sum at 1.6 dB, BP at 1.2 dB, IB (K1) at 0.8 dB; FER and
+   BER inside bands of about 3 sigma of both samples;
+10. one decode at batch 4096 per rule by K2 and by the plain whole-batch
+    decoder, early exit off (the two compute the same result), timed.
 
-Each phase prints one line; any failure raises and exits non-zero. The last
-two lines are the kernels' JSON record and the device record.
+Each phase prints one line per check; any failure raises and exits
+non-zero. The last lines are the kernels' JSON record, the card's name and
+power limit, and the device record.
 
 Usage: python3 chip_smoke.py
 """
@@ -24,6 +43,7 @@ from __future__ import annotations
 import json
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -38,6 +58,31 @@ def nvidia_smi() -> str:
     ).stdout.strip()
 
 
+def ptxas_lines(log: str, names: dict[str, str] | None = None) -> str:
+    """Registers and spills of each kernel in an ``nvcc -Xptxas -v`` log,
+    labelled by ``names`` (a substring of the mangled name -> label)."""
+    out, label = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            label = next((v for k, v in (names or {}).items() if k in line), "")
+        elif "registers" in line or "spill" in line:
+            out.append(f"{label + ': ' if label else ''}{line.strip()}")
+    return "; ".join(out)
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds of ``fn()`` on the card over ``reps`` calls after
+    one warm-up call, by CUDA events."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -49,29 +94,46 @@ def main() -> None:
         build_quantizer_tables,
         device_tables,
         sample_clusters_from_uniform,
+        sample_llrs_from_uniform,
         sigma2_from_ebn0_db,
     )
     from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
+    from informationbottleneckdecodingldpc_torch.decode import (
+        DeviceTrellis,
+        belief_propagation_decode,
+        min_sum_decode,
+    )
+    from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
     from informationbottleneckdecodingldpc_torch.kernels import (
+        FusedFloatDecoder,
         FusedIBDecoder,
+        float_decode_tiled,
         ib_lut_decode_tiled,
     )
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
+    from informationbottleneckdecodingldpc_torch.sim import BERSimulator
+    from informationbottleneckdecodingldpc_torch.sim.engine import received_plane
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
         CONFIG_DIR,
+        FLOAT_SCENARIOS,
+        build_float_sim,
         build_headline_sim,
         measure_sim_throughput,
     )
 
     dev = torch.device("cuda")
 
-    # -- 2: build --------------------------------------------------------
+    # -- 2: build (both kernels' nvcc runs start together) ----------------
     t0 = time.perf_counter()
-    _, build = load_library("ib_lut_fused")
-    ptxas = [l.strip() for l in build["log"].splitlines() if "registers" in l]
+    with ThreadPoolExecutor(2) as pool:
+        builds = {n: pool.submit(load_library, n) for n in ("ib_lut_fused", "float_fused")}
+        _, build = builds["ib_lut_fused"].result()
+        k1_loaded = time.perf_counter() - t0
+        _, k2_build = builds["float_fused"].result()
+        k2_loaded = time.perf_counter() - t0
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
-          f"{time.perf_counter() - t0:.2f} s; {'; '.join(ptxas)}", flush=True)
+          f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
 
     # -- 3: kernel vs plain twin -----------------------------------------
     layout = get_model("wlan-1296").make_layout()
@@ -176,6 +238,141 @@ def main() -> None:
     print(f"[5 times] batch 4096 decode: K1 {ms:.3f} ms, plain twin "
           f"{plain_ms:.1f} ms on {card}", flush=True)
 
+    # -- 6: K2 build ------------------------------------------------------
+    print(f"[6 build] float_fused.cu: nvcc {k2_build['seconds']:.2f} s (beside "
+          f"K1), both loaded after {k2_loaded:.2f} s; "
+          f"{ptxas_lines(k2_build['log'], {'ILi0E': 'minsum', 'ILi1E': 'bp'})}",
+          flush=True)
+
+    # -- 7: K2 vs plain twin ---------------------------------------------
+    rules = ("minsum", "bp")
+    k2_err = dict.fromkeys(rules, 0.0)
+
+    def float_llrs(ebn0_db: float, batch: int, seed: int, true: bool = False):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        shape = (layout.n_vars, batch)
+        sigma2 = float(sigma2_from_ebn0_db(ebn0_db, layout.code_rate))
+        if true:
+            noise = torch.randn(shape, generator=g, device=dev)
+            zeros = torch.zeros(shape, dtype=torch.int8, device=dev)
+            return 2.0 * received_plane(zeros, noise, sigma2) / sigma2
+        qt = device_tables(build_quantizer_tables(sigma2, 3.0, 16, 2000), dev)
+        u = torch.rand(shape, generator=g, device=dev)
+        return sample_llrs_from_uniform(
+            qt.cdf, qt.llrs, u, torch.zeros(shape, dtype=torch.int32, device=dev)
+        )
+
+    def same(got, ref) -> bool:
+        return (
+            bool((got.outputs == ref.outputs).all())
+            and torch.equal(got.unsatisfied, ref.unsatisfied)
+            and float(got.iterations) == float(ref.iterations)
+        )
+
+    float_cases = [  # (label, Eb/N0, true LLRs, max_iters, early exit)
+        ("quantized", 2.0, False, 50, True),
+        ("quantized", 2.0, False, 50, False),
+        ("quantized", 4.0, False, 50, True),
+        ("true", 2.0, True, 50, True),
+        ("quantized", 2.0, False, 1, True),
+    ]
+    for rule in rules:
+        for k, (label, ebn0, true, imax, early_exit) in enumerate(float_cases):
+            ch = float_llrs(ebn0, 512, seed=100 + k, true=true)
+            dec = FusedFloatDecoder(layout, rule, max_iters=imax, early_exit=early_exit)
+            got = dec(ch)
+            ref = float_decode_tiled(
+                layout, ch, rule, dec.batch_tile, imax, early_exit=early_exit
+            )
+            torch.cuda.synchronize()
+            err = float((got.outputs - ref.outputs).abs().max())
+            k2_err[rule] = max(k2_err[rule], err)
+            if not same(got, ref):
+                raise AssertionError(
+                    f"K2 {rule} disagrees with its twin on {label} LLRs at {ebn0} "
+                    f"dB, max_iters {imax}, early_exit={early_exit}: max |out diff| "
+                    f"{err}, iterations {float(got.iterations)} vs "
+                    f"{float(ref.iterations)}"
+                )
+            print(f"[7 exact] K2 {rule} {label} LLRs {ebn0} dB max_iters {imax} "
+                  f"early_exit={early_exit} batch 512 tile {dec.batch_tile}: outputs, "
+                  f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
+                  flush=True)
+
+    # -- 8: the float cells ------------------------------------------------
+    k2_launches = {}
+    for name in FLOAT_SCENARIOS:
+        sc = FLOAT_SCENARIOS[name]
+        sim = build_float_sim(name, dev)
+        decoder = sim.fused_decoder
+        decoder.launches = 0
+        rate = measure_sim_throughput(sim, sc["ebn0_db"])
+        timed_steps = (1 + 6) * sim.steps_per_dispatch
+        point = sim.run_point(sc["ebn0_db"], min_errors=10**12, max_blocks=32768)
+        k2_launches[sc["decoder"]] = decoder.launches
+        steps = timed_steps + point.blocks // sim.batch_total
+        if decoder.launches != steps:
+            raise AssertionError(f"{decoder.launches} K2 launches for {steps} steps")
+        print(f"[8 cell] {name}: {rate / 1e6:.2f} Mbit/s coded on {card}; "
+              f"{decoder.launches} K2 launches for {steps} steps; "
+              f"{sc['ebn0_db']} dB over {point.blocks} blocks: FER {point.fer:.5f}, "
+              f"BER {point.ber:.3e}, mean iterations {point.mean_iterations:.3f}",
+              flush=True)
+
+    # -- 9: encoded chain vs the reference curves --------------------------
+    H = get_model("wlan-1296").make_h()
+    encoder = LDPCEncoder(H)
+    ib_tables = configs["wlan_T16_0.8"].tables
+    bands = [  # (decoder, Eb/N0, FER, FER band, BER, reference file)
+        ("minsum", 1.6, 0.2791, 0.025, 0.03329, "wlan_minsum_enc"),
+        ("bp", 1.2, 0.1267, 0.018, 0.008859, "wlan_bp_enc"),
+        ("ib", 0.8, 0.666, 0.07, 0.0745, "wlan_ib_T16_enc"),
+    ]
+    for decoder_name, ebn0, fer_ref, fer_band, ber_ref, ref_name in bands:
+        kw = dict(max_iters=50)
+        if decoder_name == "ib":
+            kw = dict(
+                trellis=DeviceTrellis.from_tables(ib_tables, dev),
+                cardinality_t_channel=ib_tables.cardinality_t_channel,
+            )
+        sim = BERSimulator(
+            layout, decoder_name, device=dev, chain="encoded", encoder=encoder,
+            batch_per_device=4096, steps_per_dispatch=8, seed=0, **kw,
+        )
+        point = sim.run_point(ebn0, min_errors=10**12, max_blocks=32768)
+        ok = abs(point.fer - fer_ref) <= fer_band and abs(point.ber - ber_ref) <= 0.15 * ber_ref
+        print(f"[9 encoded] {decoder_name} {ebn0} dB: {point.blocks} blocks, FER "
+              f"{point.fer:.4f} ({fer_ref} +- {fer_band}), BER {point.ber:.5f} "
+              f"({ber_ref} +- 15%, results/ber/{ref_name}.json), mean iterations "
+              f"{point.mean_iterations:.3f}", flush=True)
+        if not ok:
+            raise AssertionError(f"encoded {decoder_name} FER or BER outside its band")
+
+    # -- 10: one decode at batch 4096, K2 and the plain decoder ------------
+    k2_ms, k2_plain_ms = {}, {}
+    ch = float_llrs(2.0, 4096, seed=99)
+    plain = {"minsum": min_sum_decode, "bp": belief_propagation_decode}
+    for rule in rules:
+        dec = FusedFloatDecoder(layout, rule, max_iters=50, early_exit=False)
+        k2_ms[rule] = cuda_ms(lambda: dec(ch))
+        got = dec(ch)
+        plain[rule](layout, ch, 50, early_exit=False)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain[rule](layout, ch, 50, early_exit=False)
+        torch.cuda.synchronize()
+        k2_plain_ms[rule] = (time.perf_counter() - t0) * 1e3
+        err = float((got.outputs - ref.outputs).abs().max())
+        k2_err[rule] = max(k2_err[rule], err)
+        if not same(got, ref):
+            raise AssertionError(f"K2 {rule} disagrees with the plain decoder ({err})")
+        print(f"[10 times] batch 4096 {rule} decode, 49 bodies: K2 {k2_ms[rule]:.3f} "
+              f"ms (tile {dec.batch_tile}), plain whole-batch decoder "
+              f"{k2_plain_ms[rule]:.1f} ms on {card}; outputs equal", flush=True)
+
+    k2_source = "informationbottleneckdecodingldpc_torch/csrc/float_fused.cu"
+    k2_replaces = "informationbottleneckdecodingldpc_tpu/kernels/float_fused.py:143"
     print(json.dumps({"kernels": [{
         "name": "ib_lut_fused",
         "route": "cuda",
@@ -185,7 +382,16 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
-    }]}))
+    }] + [{
+        "name": f"float_fused_{rule}",
+        "route": "cuda",
+        "source": k2_source,
+        "replaces": k2_replaces,
+        "launches": k2_launches[rule],
+        "max_abs_err": k2_err[rule],
+        "ms": k2_ms[rule],
+        "plain_ms": k2_plain_ms[rule],
+    } for rule in rules]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -132,3 +132,17 @@ def sample_clusters_from_uniform(
     cardinality_t = cdf.shape[0] - 1
     t = _threshold_count(cdf[1:-1], u)
     return torch.where(bits.bool(), cardinality_t - 1 - t, t)
+
+
+def quantize_llr_with(
+    limits: torch.Tensor, llrs: torch.Tensor, y: torch.Tensor
+) -> torch.Tensor:
+    """Float32 LLR of the quantized cluster of each received value."""
+    return llrs[quantize_with(limits, y)]
+
+
+def sample_llrs_from_uniform(
+    cdf: torch.Tensor, llrs: torch.Tensor, u: torch.Tensor, bits: torch.Tensor
+) -> torch.Tensor:
+    """Float32 LLR of clusters inversion-sampled from the uniforms ``u``."""
+    return llrs[sample_clusters_from_uniform(cdf, u, bits)]

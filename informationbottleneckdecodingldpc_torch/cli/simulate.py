@@ -1,15 +1,18 @@
-"""Run a BER sweep of the IB decoder on the all-zeros chain.
+"""Run a BER sweep of the IB, min-sum or BP decoder on a BPSK chain.
 
 Reduced port of ``cli/simulate.py``: one ``run_point`` per Eb/N0 from
 ``--start-db`` to ``--max-db`` in steps of ``--step-db``; after each point
 the results file is rewritten as ``{"points": [...]}`` with the JAX engine's
-point keys. Sweep resume is not ported yet. The default device is ``cuda``;
-without a card the run raises.
+point keys. Sweep resume, exports and M-ary modulations are not ported yet.
+The default device is ``cuda``; without a card the run raises.
 
 Usage:
-  python -m informationbottleneckdecodingldpc_torch.cli.simulate \
-      --model wlan-1296 --config results/configs/wlan_T16_0.8.npz \
+  python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
+      --model wlan-1296 --config results/configs/wlan_T16_0.8.npz \\
       --start-db 0.8 --max-db 1.6 --step-db 0.4 --results wlan_ib.json
+  python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
+      --model wlan-1296 --decoder minsum --chain encoded \\
+      --start-db 1.2 --max-db 1.6 --step-db 0.4 --results wlan_minsum.json
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 
 from ..construct import DecoderConfig
 from ..decode import DeviceTrellis
+from ..encode import LDPCEncoder
 from ..models import get_model
 from ..sim import BERSimulator
 from ..sim.engine import resolve_device
@@ -32,17 +36,22 @@ def main(argv=None):
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
     p.add_argument("--model", required=True)
-    p.add_argument("--decoder", choices=["ib"], default="ib")
-    p.add_argument("--config", required=True, help="decoder config .npz")
-    p.add_argument("--chain", choices=["allzero"], default="allzero")
+    p.add_argument("--decoder", choices=["ib", "minsum", "bp"], default="ib")
+    p.add_argument("--config", default=None, help="decoder config .npz (ib)")
+    p.add_argument("--chain", choices=["allzero", "encoded"], default="allzero")
+    p.add_argument("--llr-source", choices=["quantized", "true"], default="quantized")
     p.add_argument("--start-db", type=float, default=0.0)
     p.add_argument("--max-db", type=float, default=None)
     p.add_argument("--step-db", type=float, default=0.1)
     p.add_argument("--min-errors", type=int, default=None)
     p.add_argument("--max-blocks-per-point", type=int, default=10_000_000)
     p.add_argument("--max-iters", type=int, default=None)
+    p.add_argument("--t-channel", type=int, default=None,
+                   help="channel-quantizer cardinality |T_ch| for the float "
+                        "decoders (default: the model's)")
     p.add_argument("--batch-per-device", type=int, default=None)
     p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--no-early-exit", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--results", required=True, help="JSON results file")
@@ -50,17 +59,34 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     spec = get_model(args.model)
-    cfg = DecoderConfig.load(args.config)
+    H = spec.make_h()
+    trellis = None
+    cardinality_t_channel = spec.cardinality_t_channel
+    if args.decoder == "ib":
+        if not args.config:
+            p.error("--config is required for the ib decoder")
+        if args.t_channel is not None:
+            p.error("--t-channel applies to the float decoders only (the ib "
+                    "decoder's |T_ch| comes from its config)")
+        cfg = DecoderConfig.load(args.config)
+        trellis = DeviceTrellis.from_tables(cfg.tables, device)
+        cardinality_t_channel = cfg.tables.cardinality_t_channel
+    elif args.t_channel is not None:
+        cardinality_t_channel = args.t_channel
+    encoder = LDPCEncoder(H) if args.chain == "encoded" else None
     sim = BERSimulator(
-        spec.make_layout(),
+        spec.make_layout(H),
         args.decoder,
-        trellis=DeviceTrellis.from_tables(cfg.tables, device),
+        trellis=trellis,
         device=device,
         max_iters=args.max_iters or spec.decode_i_max,
         chain=args.chain,
-        count_all_bits=spec.count_all_bits,
-        cardinality_t_channel=cfg.tables.cardinality_t_channel,
+        llr_source=args.llr_source,
+        count_all_bits=spec.count_all_bits and args.chain == "allzero",
+        cardinality_t_channel=cardinality_t_channel,
         batch_per_device=args.batch_per_device or spec.batch_hint,
+        early_exit=not args.no_early_exit,
+        encoder=encoder,
         seed=args.seed,
         steps_per_dispatch=args.steps_per_dispatch,
     )

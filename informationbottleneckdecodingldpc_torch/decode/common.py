@@ -19,8 +19,9 @@ from .graph_arrays import DecodeLayout
 class DecodeResult:
     """Decoder output.
 
-    ``outputs``: [n_vars, batch] int32 cluster index in natural variable
-    order. ``iterations``: the executed in-loop iteration count; an int32
+    ``outputs``: [n_vars, batch] in natural variable order: the int32
+    cluster index for the IB decoder, the float32 posterior LLR for min-sum
+    and BP. ``iterations``: the executed in-loop iteration count; an int32
     scalar for the whole-batch decoder, and the float32 per-codeword mean for
     the tiled decoders (each tile of codewords exits on its own).
     ``unsatisfied``: [batch] int32 unsatisfied-check count at exit.
@@ -29,6 +30,65 @@ class DecodeResult:
     outputs: torch.Tensor
     iterations: torch.Tensor
     unsatisfied: torch.Tensor
+
+
+def group_planes(view: torch.Tensor, grp) -> torch.Tensor:
+    """A degree group's rows of a view as [degree, num_nodes, batch]."""
+    size = grp.num_nodes * grp.degree
+    return view[grp.offset : grp.offset + size].reshape(
+        grp.degree, grp.num_nodes, -1
+    )
+
+
+def apply_per_cn_group(
+    layout: DecodeLayout, edge_array: torch.Tensor, fn: Callable
+) -> torch.Tensor:
+    """Apply fn(msgs[d, n, batch], group) -> [d, n, batch] over each
+    check-node degree group; the results in CN-view row order."""
+    batch = edge_array.shape[-1]
+    return torch.cat(
+        [
+            fn(group_planes(edge_array, grp), grp).reshape(-1, batch)
+            for grp in layout.cn_groups
+        ],
+        dim=0,
+    )
+
+
+def gather_node_values_per_group(
+    layout: DecodeLayout, node_values: torch.Tensor
+) -> list[torch.Tensor]:
+    """Per-VN-group node values ([num_nodes, batch] each, group order),
+    gathered once from [n_vars, batch] (e.g. the channel values)."""
+    ordered = node_values[layout.tensors(node_values.device).vn_node_order]
+    return list(torch.split(ordered, [g.num_nodes for g in layout.vn_groups]))
+
+
+def apply_per_vn_group(
+    layout: DecodeLayout,
+    edge_array: torch.Tensor,
+    node_values_per_group: list[torch.Tensor],
+    fn: Callable,
+) -> torch.Tensor:
+    """Apply fn(ch[n, batch], msgs[d, n, batch], group) -> [d, n, batch]
+    over each variable-node degree group; the results in VN-view row
+    order."""
+    batch = edge_array.shape[-1]
+    return torch.cat(
+        [
+            fn(ch, group_planes(edge_array, grp), grp).reshape(-1, batch)
+            for grp, ch in zip(layout.vn_groups, node_values_per_group)
+        ],
+        dim=0,
+    )
+
+
+def node_outputs_to_natural_order(
+    layout: DecodeLayout, per_group_outputs: list[torch.Tensor]
+) -> torch.Tensor:
+    """Concatenate per-VN-group node results and restore variable order."""
+    concat = torch.cat(per_group_outputs, dim=0)
+    return concat[layout.tensors(concat.device).vn_node_unperm]
 
 
 def unsatisfied_checks(

@@ -30,7 +30,16 @@ from ..ops.lut_fold import (
     vn_lut_full_fold,
     vn_lut_leave_one_out,
 )
-from .common import DecodeResult, run_message_passing_loop, unsatisfied_checks
+from .common import (
+    DecodeResult,
+    apply_per_cn_group,
+    apply_per_vn_group,
+    gather_node_values_per_group,
+    group_planes,
+    node_outputs_to_natural_order,
+    run_message_passing_loop,
+    unsatisfied_checks,
+)
 from .graph_arrays import DecodeLayout
 
 
@@ -82,13 +91,6 @@ class DeviceTrellis:
         )
 
 
-def _group_planes(view: torch.Tensor, grp) -> torch.Tensor:
-    size = grp.num_nodes * grp.degree
-    return view[grp.offset : grp.offset + size].reshape(
-        grp.degree, grp.num_nodes, -1
-    )
-
-
 def ib_lut_decode(
     layout: DecodeLayout,
     trellis: DeviceTrellis,
@@ -104,27 +106,20 @@ def ib_lut_decode(
         raise ValueError("max_iters exceeds constructed i_max")
     device = trellis.device
     idx = layout.tensors(device)
-    batch = channel_clusters.shape[-1]
     ch = channel_clusters.to(device=device, dtype=torch.int64)
     thresh = trellis.t_decoder // 2
 
     cn_view0 = ch[idx.cn_edge_var]
-    ordered = ch[idx.vn_node_order]
-    ch_groups, off = [], 0
-    for grp in layout.vn_groups:
-        ch_groups.append(ordered[off : off + grp.num_nodes])
-        off += grp.num_nodes
+    ch_groups = gather_node_values_per_group(layout, ch)
 
     def cn_pass(cn_view, luts_for_degree, match_row):
-        outs = []
-        for grp in layout.cn_groups:
-            out = cn_lut_leave_one_out(
-                _group_planes(cn_view, grp), luts_for_degree(grp.degree)
-            )
+        def fold(msgs, grp):
+            out = cn_lut_leave_one_out(msgs, luts_for_degree(grp.degree))
             if match_row is not None:
                 out = vector_lookup(match_row[grp.degree - 1], out)
-            outs.append(out.reshape(-1, batch))
-        return torch.cat(outs, dim=0)[idx.to_vn_perm]
+            return out
+
+        return apply_per_cn_group(layout, cn_view, fold)[idx.to_vn_perm]
 
     vn_view = cn_pass(
         cn_view0,
@@ -139,19 +134,19 @@ def ib_lut_decode(
         match_vn_i = (
             trellis.matching_vn[i] if trellis.matching_vn is not None else None
         )
-        outs = []
-        for grp, chv in zip(layout.vn_groups, ch_groups):
+
+        def fold(chv, msgs, grp):
             d = grp.degree
             out = vn_lut_leave_one_out(
-                chv,
-                _group_planes(vn_view, grp),
-                vn_first_i,
-                [vn_rest_i[l] for l in range(max(d - 2, 0))],
+                chv, msgs, vn_first_i, [vn_rest_i[l] for l in range(max(d - 2, 0))]
             )
             if match_vn_i is not None and d > 1:
                 out = vector_lookup(match_vn_i[d - 1], out)
-            outs.append(out.reshape(-1, batch))
-        cn_view = torch.cat(outs, dim=0)[idx.to_cn_perm]
+            return out
+
+        cn_view = apply_per_vn_group(layout, vn_view, ch_groups, fold)[
+            idx.to_cn_perm
+        ]
 
         cn_rest_i = trellis.cn_rest[i]
         new_vn_view = cn_pass(
@@ -168,7 +163,7 @@ def ib_lut_decode(
         (vn_view,),
         body,
         max_inner_iters=imax - 1,
-        batch=batch,
+        batch=ch.shape[-1],
         device=device,
         early_exit=early_exit,
     )
@@ -181,12 +176,12 @@ def ib_lut_decode(
         outs.append(
             vn_lut_full_fold(
                 chv,
-                _group_planes(vn_view, grp),
+                group_planes(vn_view, grp),
                 dec_first,
                 [dec_rest[l] for l in range(max(grp.degree - 1, 0))],
             )
         )
-    outputs = torch.cat(outs, dim=0)[idx.vn_node_unperm]
+    outputs = node_outputs_to_natural_order(layout, outs)
     return DecodeResult(
         outputs=outputs.to(torch.int32), iterations=iters, unsatisfied=unsat
     )

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -77,29 +78,21 @@ def mean_iterations(per_codeword: torch.Tensor) -> torch.Tensor:
     return per_codeword.to(torch.float32).sum() * inv
 
 
-def ib_lut_decode_tiled(
-    layout: DecodeLayout,
-    trellis: DeviceTrellis,
-    channel_clusters: torch.Tensor,
+def decode_in_tiles(
+    decode: Callable[[torch.Tensor], DecodeResult],
+    channel: torch.Tensor,
     batch_tile: int,
-    max_iters: int | None = None,
-    early_exit: bool = True,
 ) -> DecodeResult:
-    """Plain twin of K1: :func:`ib_lut_decode` on each zero-padded tile of
-    ``batch_tile`` columns (so each tile exits early on its own, padding
-    included); ``iterations`` is the mean over the real codewords."""
-    batch = channel_clusters.shape[-1]
+    """A whole-batch ``decode`` run on each zero-padded tile of
+    ``batch_tile`` columns, so each tile exits early on its own (padding
+    included), as a fused kernel's CTA does; ``iterations`` is the mean over
+    the real codewords."""
+    batch = channel.shape[-1]
     pad = (-batch) % batch_tile
-    ch = torch.nn.functional.pad(channel_clusters, (0, pad))
+    ch = torch.nn.functional.pad(channel, (0, pad))
     outs, unsats, iters = [], [], []
     for b0 in range(0, batch + pad, batch_tile):
-        r = ib_lut_decode(
-            layout,
-            trellis,
-            ch[:, b0 : b0 + batch_tile],
-            max_iters=max_iters,
-            early_exit=early_exit,
-        )
+        r = decode(ch[:, b0 : b0 + batch_tile])
         outs.append(r.outputs)
         unsats.append(r.unsatisfied)
         iters.append(r.iterations.expand(batch_tile))
@@ -108,6 +101,56 @@ def ib_lut_decode_tiled(
         iterations=mean_iterations(torch.cat(iters)[:batch]),
         unsatisfied=torch.cat(unsats)[:batch],
     )
+
+
+def ib_lut_decode_tiled(
+    layout: DecodeLayout,
+    trellis: DeviceTrellis,
+    channel_clusters: torch.Tensor,
+    batch_tile: int,
+    max_iters: int | None = None,
+    early_exit: bool = True,
+) -> DecodeResult:
+    """Plain twin of K1: :func:`ib_lut_decode` on each tile."""
+    return decode_in_tiles(
+        lambda ch: ib_lut_decode(
+            layout, trellis, ch, max_iters=max_iters, early_exit=early_exit
+        ),
+        channel_clusters,
+        batch_tile,
+    )
+
+
+def layout_arrays(layout: DecodeLayout) -> dict[str, np.ndarray]:
+    """The layout as the fused kernels take it (int32): the variable of each
+    CN-view row and of each group-ordered VN, the routes between the views,
+    the CN groups (offset, num_nodes, degree) and the VN groups (offset,
+    num_nodes, degree, node offset)."""
+    node_offsets = np.cumsum([0] + [g.num_nodes for g in layout.vn_groups])
+    return dict(
+        seed_var=layout.cn_edge_var,
+        node_var=layout.vn_node_order,
+        cn_route=layout.cn_to_vn_row,
+        vn_route=layout.vn_to_cn_row,
+        cn_groups=np.asarray(
+            [(g.offset, g.num_nodes, g.degree) for g in layout.cn_groups], np.int32
+        ),
+        vn_groups=np.asarray(
+            [
+                (g.offset, g.num_nodes, g.degree, off)
+                for g, off in zip(layout.vn_groups, node_offsets)
+            ],
+            np.int32,
+        ),
+    )
+
+
+def device_arrays(arrays: dict[str, np.ndarray], device: torch.device) -> dict:
+    """Contiguous tensors on ``device`` of host arrays."""
+    return {
+        k: torch.as_tensor(np.ascontiguousarray(v), device=device)
+        for k, v in arrays.items()
+    }
 
 
 class FusedIBDecoder:
@@ -221,32 +264,9 @@ class FusedIBDecoder:
 
     def _args(self, device: torch.device) -> dict:
         if device not in self._kernel_args:
-            lay = self.layout
-            arrays = dict(self._host_tables())
-            arrays.update(
-                seed_var=lay.cn_edge_var,
-                node_var=lay.vn_node_order,
-                cn_route=lay.cn_to_vn_row,
-                vn_route=lay.vn_to_cn_row,
-                cn_groups=np.asarray(
-                    [(g.offset, g.num_nodes, g.degree) for g in lay.cn_groups],
-                    np.int32,
-                ),
-                vn_groups=np.asarray(
-                    [
-                        (g.offset, g.num_nodes, g.degree, off)
-                        for g, off in zip(
-                            lay.vn_groups,
-                            np.cumsum([0] + [g.num_nodes for g in lay.vn_groups]),
-                        )
-                    ],
-                    np.int32,
-                ),
+            self._kernel_args[device] = device_arrays(
+                {**self._host_tables(), **layout_arrays(self.layout)}, device
             )
-            self._kernel_args[device] = {
-                k: torch.as_tensor(np.ascontiguousarray(v), device=device)
-                for k, v in arrays.items()
-            }
         return self._kernel_args[device]
 
     def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:

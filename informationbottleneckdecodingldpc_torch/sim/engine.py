@@ -1,35 +1,53 @@
-"""Monte-Carlo BER engine for the all-zeros IB chain.
+"""Monte-Carlo BER engine for the BPSK chains on one device.
 
-Port of ``sim/engine.py`` for ``decoder="ib"``, ``chain="allzero"``,
-``modulation="bpsk"`` on one device: each step draws a uniform plane
-[n_vars, batch], samples channel clusters by inversion, decodes (the fused
-kernel on a CUDA device, its plain twin on the CPU) and counts bit and frame
-errors over the counted prefix. The host loop accumulates the counters until
-``min_errors`` bit errors or ``max_blocks`` blocks.
+Port of ``sim/engine.py`` for ``decoder`` in ``ib | minsum | bp``, ``chain``
+in ``allzero | encoded``, ``llr_source`` in ``quantized | true``, BPSK, one
+device. Each step draws its random planes, builds the channel input, decodes
+(the fused kernels on a CUDA device, their plain twins on the CPU) and counts
+bit and frame errors over the counted prefix. The host loop accumulates the
+counters until ``min_errors`` bit errors or ``max_blocks`` blocks.
+
+Chains:
+
+- ``allzero``: the all-zeros codeword. Quantized input is sampled by
+  inversion from a uniform plane (clusters for IB, their LLRs for the float
+  decoders); true LLRs are 2y/sigma^2 of y = 1 + sigma n.
+- ``encoded``: random info bits -> GF(2) encode on the device -> BPSK ->
+  AWGN -> threshold quantizer (clusters or LLRs) or 2y/sigma^2; errors are
+  counted against the transmitted bits.
 
 Randomness: step ``s`` of the point at ``ebn0_db`` draws from a
 ``torch.Generator`` on the device seeded from ``(seed, round(ebn0_db*1000),
-s)``, so a point can resume at step granularity. Unlike the JAX engine,
-which keys every codeword, the counters depend on the batch size.
+s)``, so a point can resume at step granularity. The encoded chain draws the
+info bits (``randint``) and then the noise (``randn``); the all-zeros chain
+draws one uniform (quantized) or normal (true LLRs) plane. Unlike the JAX
+engine, which keys every codeword, the counters depend on the batch size.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 
 import numpy as np
 import torch
 
 from ..channel.awgn import sigma2_from_ebn0_db
+from ..channel.modulation import bpsk_map
 from ..channel.quantizer import (
     DeviceQuantizerTables,
     build_quantizer_tables,
     device_tables,
+    quantize_llr_with,
+    quantize_with,
     sample_clusters_from_uniform,
+    sample_llrs_from_uniform,
 )
 from ..decode.graph_arrays import DecodeLayout
 from ..decode.ib_lut import DeviceTrellis
+from ..encode.encoder import device_encoder
+from ..kernels.float_fused import FusedFloatDecoder
 from ..kernels.ib_lut_fused import FusedIBDecoder
 
 
@@ -68,12 +86,23 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
-class BERSimulator:
-    """BER simulator for one (code, IB decoder) pair on one device.
+def received_plane(bits: torch.Tensor, noise: torch.Tensor, sigma2: float) -> torch.Tensor:
+    """y = bpsk(bits) + sqrt(sigma^2) n in float32: a multiply, then an add
+    (XLA on the CPU fuses them into one FMA, so the JAX value may differ in
+    the last bit)."""
+    return bpsk_map(bits) + math.sqrt(sigma2) * noise
 
-    It decodes with :class:`FusedIBDecoder`: the K1 kernel on CUDA, its
-    plain twin on CPU, early exit per tile of ``batch_tile`` codewords
-    (``batch_tile=batch_per_device`` gives whole-batch lockstep).
+
+class BERSimulator:
+    """BER simulator for one (code, decoder) pair on one device.
+
+    ``decoder`` is 'ib' (needs ``trellis``; decodes with
+    :class:`FusedIBDecoder`) or 'minsum' / 'bp' (need ``max_iters``; decode
+    with :class:`FusedFloatDecoder`): the CUDA kernel on a CUDA device, its
+    plain twin on the CPU, early exit per tile of ``batch_tile`` codewords
+    (``batch_tile=batch_per_device`` gives whole-batch lockstep). The
+    encoded chain needs the host ``encoder`` (the JAX package's numpy
+    ``LDPCEncoder``), whose matrices go to the device once.
     """
 
     def __init__(
@@ -81,10 +110,11 @@ class BERSimulator:
         layout: DecodeLayout,
         decoder: str,
         *,
-        trellis: DeviceTrellis,
         device: torch.device | str,
+        trellis: DeviceTrellis | None = None,
         max_iters: int | None = None,
         chain: str = "allzero",
+        llr_source: str = "quantized",
         count_all_bits: bool = False,
         cardinality_t_channel: int = 16,
         ad_max_abs: float = 3.0,
@@ -92,19 +122,12 @@ class BERSimulator:
         batch_per_device: int = 128,
         n_devices: int = 1,
         early_exit: bool = True,
+        encoder=None,
         seed: int = 0,
         batch_tile: int | None = None,
         steps_per_dispatch: int = 1,
         modulation: str = "bpsk",
     ):
-        if decoder != "ib":
-            raise NotImplementedError(
-                f"decoder {decoder!r} is not ported yet (ROADMAP item 7)"
-            )
-        if chain != "allzero":
-            raise NotImplementedError(
-                f"chain {chain!r} is not ported yet (ROADMAP item 6)"
-            )
         if modulation != "bpsk":
             raise NotImplementedError(
                 f"modulation {modulation!r} is not ported yet (ROADMAP item 9)"
@@ -113,14 +136,30 @@ class BERSimulator:
             raise NotImplementedError(
                 "more than one device is not ported yet (ROADMAP item 10)"
             )
+        if decoder not in ("ib", "minsum", "bp"):
+            raise ValueError(f"unknown decoder {decoder!r}")
+        if chain not in ("allzero", "encoded"):
+            raise ValueError(f"unknown chain {chain!r}")
+        if llr_source not in ("quantized", "true"):
+            raise ValueError(f"unknown llr_source {llr_source!r}")
         self.device = resolve_device(device)
-        if trellis.device != self.device:
-            raise ValueError(
-                f"trellis lives on {trellis.device}, simulator on {self.device}"
-            )
         self.layout = layout
+        self.decoder = decoder
+        self.chain = chain
+        self.llr_source = llr_source
         self.trellis = trellis
-        self.max_iters = int(max_iters or trellis.i_max)
+        if decoder == "ib":
+            if trellis is None:
+                raise ValueError("the ib decoder requires trellis tables")
+            if trellis.device != self.device:
+                raise ValueError(
+                    f"trellis lives on {trellis.device}, simulator on {self.device}"
+                )
+            self.max_iters = int(max_iters or trellis.i_max)
+        elif max_iters is None:
+            raise ValueError("float decoders require max_iters")
+        else:
+            self.max_iters = int(max_iters)
         self.count_all_bits = bool(count_all_bits)
         self.cardinality_t_channel = int(cardinality_t_channel)
         self.ad_max_abs = float(ad_max_abs)
@@ -131,14 +170,29 @@ class BERSimulator:
         self.seed = int(seed)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         self.prefix_len = layout.n_vars if self.count_all_bits else layout.data_len
-        self.fused_decoder = FusedIBDecoder(
-            layout,
-            trellis.host,
-            max_iters=self.max_iters,
-            early_exit=self.early_exit,
-            use_matching=trellis.matching_cn is not None,
-            batch_tile=batch_tile,
-        )
+        self._encode = None
+        if chain == "encoded":
+            if encoder is None:
+                raise ValueError("the encoded chain requires an LDPCEncoder")
+            self._info_len = encoder.k
+            self._encode = device_encoder(encoder, self.device)
+        if decoder == "ib":
+            self.fused_decoder = FusedIBDecoder(
+                layout,
+                trellis.host,
+                max_iters=self.max_iters,
+                early_exit=self.early_exit,
+                use_matching=trellis.matching_cn is not None,
+                batch_tile=batch_tile,
+            )
+        else:
+            self.fused_decoder = FusedFloatDecoder(
+                layout,
+                rule=decoder,
+                max_iters=self.max_iters,
+                early_exit=self.early_exit,
+                batch_tile=batch_tile,
+            )
         self._quant_cache: dict[float, DeviceQuantizerTables] = {}
         self._generator = torch.Generator(device=self.device)
 
@@ -146,19 +200,19 @@ class BERSimulator:
     def _count_errors(
         self, outputs: torch.Tensor, reference_bits: torch.Tensor
     ) -> torch.Tensor:
-        """Per-codeword bit errors over the counted prefix; the IB decision
-        is bit = (cluster < T/2)."""
+        """Per-codeword bit errors over the counted prefix; the decision is
+        bit = (cluster < T/2) for IB and bit = (llr < 0) for the float
+        decoders."""
         prefix = outputs[: self.prefix_len]
-        hard = prefix < (self.trellis.t_decoder // 2)
+        if self.decoder == "ib":
+            hard = prefix < (self.trellis.t_decoder // 2)
+        else:
+            hard = prefix < 0
         wrong = hard != reference_bits[: self.prefix_len].bool()
         return wrong.sum(dim=0, dtype=torch.int32)
 
-    def step_from_uniform(self, u: torch.Tensor, qt: DeviceQuantizerTables):
-        """One Monte-Carlo block from a float32 uniform plane [n_vars,
-        batch]: (bit errors, frame errors, iterations) as device scalars."""
-        bits = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
-        clusters = sample_clusters_from_uniform(qt.cdf, u, bits)
-        res = self.fused_decoder(clusters)
+    def _decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor):
+        res = self.fused_decoder(channel_input)
         errors = self._count_errors(res.outputs, bits)
         return (
             errors.sum(dtype=torch.int32),
@@ -166,23 +220,94 @@ class BERSimulator:
             res.iterations.to(torch.float32),
         )
 
+    def channel_input_from_y(
+        self, y: torch.Tensor, qt: DeviceQuantizerTables, sigma2: float
+    ) -> torch.Tensor:
+        """The decoder's input from the received plane: clusters (IB),
+        quantized LLRs, or true LLRs 2y/sigma^2."""
+        if self.decoder == "ib":
+            return quantize_with(qt.limits, y)
+        if self.llr_source == "quantized":
+            return quantize_llr_with(qt.limits, qt.llrs, y)
+        return 2.0 * y / sigma2
+
+    def step_from_uniform(self, u: torch.Tensor, qt: DeviceQuantizerTables):
+        """One all-zeros block with quantized input, sampled by inversion
+        from the float32 uniform plane ``u`` [n_vars, batch]: (bit errors,
+        frame errors, iterations) as device scalars."""
+        bits = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
+        if self.decoder == "ib":
+            channel_input = sample_clusters_from_uniform(qt.cdf, u, bits)
+        else:
+            channel_input = sample_llrs_from_uniform(qt.cdf, qt.llrs, u, bits)
+        return self._decode_and_count(channel_input, bits)
+
+    def step_from_received(
+        self,
+        bits: torch.Tensor,
+        y: torch.Tensor,
+        qt: DeviceQuantizerTables,
+        sigma2: float,
+    ):
+        """One block from the sent bits and the received plane ``y``."""
+        return self._decode_and_count(self.channel_input_from_y(y, qt, sigma2), bits)
+
+    def step_from_normal(
+        self, noise: torch.Tensor, qt: DeviceQuantizerTables, sigma2: float
+    ):
+        """One all-zeros block from the float32 normal plane ``noise``."""
+        bits = torch.zeros(noise.shape, dtype=torch.int8, device=noise.device)
+        return self.step_from_received(
+            bits, received_plane(bits, noise, sigma2), qt, sigma2
+        )
+
+    def step_from_encoded(
+        self,
+        info: torch.Tensor,
+        noise: torch.Tensor,
+        qt: DeviceQuantizerTables,
+        sigma2: float,
+    ):
+        """One encoded block from info bits [K, batch] and the float32
+        normal plane ``noise`` [N, batch]."""
+        codeword = self._encode(info)
+        return self.step_from_received(
+            codeword, received_plane(codeword, noise, sigma2), qt, sigma2
+        )
+
+    def _draw_step(self, qt: DeviceQuantizerTables, sigma2: float):
+        g, dev = self._generator, self.device
+        shape = (self.layout.n_vars, self.batch_total)
+        if self.chain == "encoded":
+            info = torch.randint(
+                0, 2, (self._info_len, self.batch_total),
+                generator=g, device=dev, dtype=torch.int8,
+            )
+            noise = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+            return self.step_from_encoded(info, noise, qt, sigma2)
+        if self.decoder != "ib" and self.llr_source == "true":
+            noise = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+            return self.step_from_normal(noise, qt, sigma2)
+        u = torch.rand(shape, generator=g, device=dev, dtype=torch.float32)
+        return self.step_from_uniform(u, qt)
+
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
         """``steps_per_dispatch`` blocks from ``step_index`` on, without a
         host sync: summed errors and frame errors, mean iterations."""
+        sigma2 = self.sigma2_for(ebn0_db)
         e = f = it = None
         for j in range(self.steps_per_dispatch):
             self._generator.manual_seed(
                 step_seed(self.seed, ebn0_db, step_index + j)
             )
-            u = torch.rand(
-                (self.layout.n_vars, self.batch_total),
-                generator=self._generator,
-                device=self.device,
-                dtype=torch.float32,
-            )
-            de, df, dit = self.step_from_uniform(u, qt)
+            de, df, dit = self._draw_step(qt, sigma2)
             e, f, it = (de, df, dit) if e is None else (e + de, f + df, it + dit)
         return e, f, it / self.steps_per_dispatch
+
+    def sigma2_for(self, ebn0_db: float) -> float:
+        """The noise variance at ``ebn0_db``, rounded to float32 as the JAX
+        engine passes it."""
+        return float(np.float32(sigma2_from_ebn0_db(ebn0_db, self.layout.code_rate)))
 
     def quantizer_for(self, ebn0_db: float) -> DeviceQuantizerTables:
         key = round(float(ebn0_db), 6)

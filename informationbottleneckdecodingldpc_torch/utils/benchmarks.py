@@ -1,10 +1,16 @@
-"""The headline throughput scenario and its timing.
+"""The headline throughput scenario, the float decoders' scenarios, and
+their timing.
 
 Port of ``utils/benchmarks.py``: WLAN 802.11n N=1296 R=1/2, the irregular IB
 decoder with message alignment (|T|=16, i_max=50, checked-in config
 ``results/configs/wlan_T16_0.8.npz``), the fused kernel, all-zeros chain at
 0.8 dB, batch 4096 x 8 Monte-Carlo steps per dispatch. Metric: decoded coded
 bits/s per device, the median of timed dispatches after one warm-up.
+
+``FLOAT_SCENARIOS`` are the benchmark matrix's float cells on the same code
+(``scripts/bench_matrix.py`` ``wlan_minsum`` and ``wlan_bp_quant``):
+min-sum and BP on 16-level quantized LLRs, all-zeros chain at 2.0 dB,
+i_max 50, batch 4096 x 8 steps.
 """
 
 from __future__ import annotations
@@ -25,6 +31,22 @@ HEADLINE = dict(
     steps_per_dispatch=8,
     ebn0_db=0.8,
 )
+
+FLOAT_SCENARIOS = {
+    name: dict(
+        model="wlan-1296",
+        decoder=decoder,
+        chain="allzero",
+        llr_source="quantized",
+        count_all_bits=False,
+        batch=4096,
+        steps_per_dispatch=8,
+        max_iters=50,
+        ebn0_db=2.0,
+        seed=0,
+    )
+    for name, decoder in (("wlan_minsum", "minsum"), ("wlan_bp_quant", "bp"))
+}
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "results" / "configs"
 
@@ -71,4 +93,24 @@ def build_headline_sim(device: torch.device | str):
         batch_per_device=HEADLINE["batch"],
         seed=0,
         steps_per_dispatch=HEADLINE["steps_per_dispatch"],
+    )
+
+
+def build_float_sim(name: str, device: torch.device | str):
+    """The BERSimulator of ``FLOAT_SCENARIOS[name]`` on ``device``."""
+    from ..models import get_model
+    from ..sim import BERSimulator
+
+    sc = FLOAT_SCENARIOS[name]
+    return BERSimulator(
+        get_model(sc["model"]).make_layout(),
+        sc["decoder"],
+        device=device,
+        max_iters=sc["max_iters"],
+        chain=sc["chain"],
+        llr_source=sc["llr_source"],
+        count_all_bits=sc["count_all_bits"],
+        batch_per_device=sc["batch"],
+        seed=sc["seed"],
+        steps_per_dispatch=sc["steps_per_dispatch"],
     )

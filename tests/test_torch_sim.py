@@ -150,8 +150,8 @@ def test_step_seed_depends_on_seed_snr_and_step():
 @pytest.mark.parametrize(
     "kw, item",
     [
-        (dict(decoder="minsum"), "item 7"),
-        (dict(chain="encoded"), "item 6"),
+        (dict(modulation="mpsk"), "item 9"),
+        (dict(decoder="minsum", llr_source="true", modulation="qam"), "item 9"),
         (dict(modulation="qam"), "item 9"),
         (dict(n_devices=2), "item 10"),
     ],
