@@ -1,10 +1,13 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main paths through the fused CUDA kernels and checks them:
-the headline BER simulation (WLAN 802.11n N=1296, IB decoder |T|=16 with
-message alignment, i_max=50, all-zeros chain, batch 4096 x 8 steps) through
-K1, and the float decoders' cells (min-sum and BP on 16-level quantized
-LLRs, 2.0 dB, i_max 50, the same batch) and the encoded chain through K2.
+Drives the port's main paths through the CUDA kernels and checks them: the
+headline BER simulation (WLAN 802.11n N=1296, IB decoder |T|=16 with message
+alignment, i_max=50, all-zeros chain, batch 4096 x 8 steps) through K1; the
+float decoders' cells (min-sum and BP on 16-level quantized LLRs, 2.0 dB,
+i_max 50, the same batch) and the encoded chain through K2; and the DVB-S2
+R=1/2 N=64800 cells (IB |T|=16 on the encoded chain, min-sum on quantized
+LLRs, 1.0 dB, i_max 50, batch 1024) through the device-memory kernels K3 and
+K4.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it);
@@ -29,11 +32,30 @@ LLRs, 2.0 dB, i_max 50, the same batch) and the encoded chain through K2.
    blocks each: min-sum at 1.6 dB, BP at 1.2 dB, IB (K1) at 0.8 dB; FER and
    BER inside bands of about 3 sigma of both samples;
 10. one decode at batch 4096 per rule by K2 and by the plain whole-batch
-    decoder, early exit off (the two compute the same result), timed.
+    decoder, early exit off (the two compute the same result), timed;
+11. K3 and K4 built from ``csrc/ib_lut_hbm.cu`` and ``csrc/float_hbm.cu``
+    beside K1 and K2: build times, registers and spills per kernel;
+12. K3 against its plain twin on the same CUDA inputs, bit-exact (outputs,
+    unsatisfied counts, mean iterations): DVB-S2 |T|=16 designed at 0.6 dB
+    at 1.0 dB, batch 256, early exit on and off; designed at 0.8 dB at 9.0
+    dB, batch 512 (tiles exit after different bodies); a batch of 200 (the
+    last tile padded); WLAN at 0.8 dB, batch 512;
+13. K4 against its plain twin, both rules, DVB-S2, batch 256: quantized LLRs
+    at 1.0 dB with early exit on and off, at 9.0 dB (batch 512, tiles exit),
+    true LLRs, i_max 1; WLAN at batch 512. Equal (``==``) for min-sum and BP
+    alike;
+14. the DVB-S2 cells through BERSimulator (``backend`` 'auto' picks K3/K4):
+    coded Mbit/s, one decode per Monte-Carlo step; FER and BER over 8192
+    blocks inside bands of about 3 sigma of the run and the reference's 128
+    blocks around ``results/ber/dvbs2_*.json``: IB encoded at 1.0 dB
+    (designed at 0.6 dB) and 0.9 dB (designed at 0.8 dB), min-sum all-zeros
+    at 1.0 dB; BP through run_point and IB through the CLI, briefly;
+15. one DVB-S2 decode at batch 1024, early exit off, by K3 and K4 (both
+    rules) and by the plain whole-batch decoders, timed; outputs equal.
 
-Each phase prints one line per check; any failure raises and exits
-non-zero. The last lines are the kernels' JSON record, the card's name and
-power limit, and the device record.
+Each phase prints one line per check and its seconds; any failure raises and
+exits non-zero. The last lines are the kernels' JSON record, the card's name
+and power limit, and the device record.
 
 Usage: python3 chip_smoke.py
 """
@@ -41,11 +63,21 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import subprocess
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
+
+
+# Eb/N0 (dB) of the DVB-S2 exit cases: the degree-1 parity node forwards its
+# channel value, so a 128-codeword tile's syndrome clears only when none of
+# its codewords has that bit wrong, which takes a high SNR.
+DV_EXIT_DB = 9.0
+DV_DISPATCHES = 8  # 8192 blocks per DVB-S2 reference point
 
 
 def nvidia_smi() -> str:
@@ -83,6 +115,49 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(stop) / reps
 
 
+class Lap:
+    """Prints the seconds of each phase as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phase: int) -> None:
+        now = time.perf_counter()
+        print(f"[{phase} seconds] {now - self.t:.1f}", flush=True)
+        self.t = now
+
+
+def dispatch_point(sim, ebn0_db: float, dispatches: int) -> dict:
+    """FER, BER and mean iterations over ``dispatches`` dispatches from step 0
+    (the steps ``run_point`` draws), with the standard deviation of the
+    dispatches' BERs."""
+    qt = sim.quantizer_for(ebn0_db)
+    per_dispatch = sim.batch_total * sim.steps_per_dispatch
+    bers, frames, iters = [], 0, 0.0
+    for k in range(dispatches):
+        e, f, it = sim._step(ebn0_db, k * sim.steps_per_dispatch, qt)
+        bers.append(int(e) / (per_dispatch * sim.prefix_len))
+        frames += int(f)
+        iters += float(it)
+    blocks = dispatches * per_dispatch
+    mean = sum(bers) / dispatches
+    sd = math.sqrt(sum((b - mean) ** 2 for b in bers) / (dispatches - 1))
+    return dict(blocks=blocks, per_dispatch=per_dispatch, fer=frames / blocks, ber=mean,
+                ber_sd=sd, iterations=iters / dispatches)
+
+
+def ref_bands(point: dict, fer_ref: float, ref_blocks: int = 128) -> tuple[float, float]:
+    """3-sigma bands on |FER - reference| and |BER - reference| over both
+    samples: FER binomial at the pooled rate; BER from the per-codeword
+    spread, estimated by the dispatches' spread times sqrt(codewords per
+    dispatch)."""
+    n = point["blocks"]
+    p = (point["fer"] * n + fer_ref * ref_blocks) / (n + ref_blocks)
+    both = 1 / n + 1 / ref_blocks
+    per_codeword_sd = point["ber_sd"] * math.sqrt(point["per_dispatch"])
+    return 3 * math.sqrt(p * (1 - p) * both), 3 * per_codeword_sd * math.sqrt(both)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -90,6 +165,7 @@ def main() -> None:
     print(f"[1 device] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
 
+    lap = Lap()
     from informationbottleneckdecodingldpc_torch.channel import (
         build_quantizer_tables,
         device_tables,
@@ -98,15 +174,19 @@ def main() -> None:
         sigma2_from_ebn0_db,
     )
     from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
+    from informationbottleneckdecodingldpc_torch.cli import simulate
     from informationbottleneckdecodingldpc_torch.decode import (
         DeviceTrellis,
         belief_propagation_decode,
+        ib_lut_decode,
         min_sum_decode,
     )
     from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
     from informationbottleneckdecodingldpc_torch.kernels import (
         FusedFloatDecoder,
         FusedIBDecoder,
+        HBMFloatDecoder,
+        HBMFusedIBDecoder,
         float_decode_tiled,
         ib_lut_decode_tiled,
     )
@@ -116,7 +196,9 @@ def main() -> None:
     from informationbottleneckdecodingldpc_torch.sim.engine import received_plane
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
         CONFIG_DIR,
+        DVBS2_SCENARIOS,
         FLOAT_SCENARIOS,
+        build_dvbs2_sim,
         build_float_sim,
         build_headline_sim,
         measure_sim_throughput,
@@ -124,16 +206,22 @@ def main() -> None:
 
     dev = torch.device("cuda")
 
-    # -- 2: build (both kernels' nvcc runs start together) ----------------
+    lap(1)
+
+    # -- 2: build (the four kernels' nvcc runs start together) -------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        builds = {n: pool.submit(load_library, n) for n in ("ib_lut_fused", "float_fused")}
+    libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm")
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        builds = {n: pool.submit(load_library, n) for n in libraries}
         _, build = builds["ib_lut_fused"].result()
         k1_loaded = time.perf_counter() - t0
         _, k2_build = builds["float_fused"].result()
         k2_loaded = time.perf_counter() - t0
+        hbm_builds = {n: builds[n].result()[1] for n in ("ib_lut_hbm", "float_hbm")}
+        all_loaded = time.perf_counter() - t0
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
+    lap(2)
 
     # -- 3: kernel vs plain twin -----------------------------------------
     layout = get_model("wlan-1296").make_layout()
@@ -142,17 +230,17 @@ def main() -> None:
         for name in ("wlan_T16_0.8", "wlan_T32_0.6")
     }
 
-    def clusters(cfg, ebn0_db: float, batch: int, seed: int) -> torch.Tensor:
+    def clusters(cfg, ebn0_db: float, batch: int, seed: int, lay=layout) -> torch.Tensor:
         tch = cfg.tables.cardinality_t_channel
         qt = device_tables(
             build_quantizer_tables(
-                sigma2_from_ebn0_db(ebn0_db, layout.code_rate), 3.0, tch, 2000
+                sigma2_from_ebn0_db(ebn0_db, lay.code_rate), 3.0, tch, 2000
             ),
             dev,
         )
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
-        u = torch.rand((layout.n_vars, batch), generator=g, device=dev)
+        u = torch.rand((lay.n_vars, batch), generator=g, device=dev)
         return sample_clusters_from_uniform(qt.cdf, u, torch.zeros_like(u, dtype=torch.int32))
 
     max_abs_err = 0
@@ -189,6 +277,7 @@ def main() -> None:
         print(f"[3 exact] {name} {ebn0} dB early_exit={early_exit} batch 512 "
               f"tile {dec.batch_tile}: outputs, unsatisfied and mean iterations "
               f"{float(got.iterations):.4f} equal", flush=True)
+    lap(3)
 
     # -- 4: headline main path -------------------------------------------
     sim = build_headline_sim(dev)
@@ -213,6 +302,7 @@ def main() -> None:
           flush=True)
     if not (fer_ok and ber_ok):
         raise AssertionError("FER or BER at 0.8 dB outside its band")
+    lap(4)
 
     # -- 5: one decode at batch 4096, K1 and twin --------------------------
     cfg = configs["wlan_T16_0.8"]
@@ -237,22 +327,24 @@ def main() -> None:
         raise AssertionError(f"K1 disagrees with its twin at batch 4096 ({err})")
     print(f"[5 times] batch 4096 decode: K1 {ms:.3f} ms, plain twin "
           f"{plain_ms:.1f} ms on {card}", flush=True)
+    lap(5)
 
     # -- 6: K2 build ------------------------------------------------------
     print(f"[6 build] float_fused.cu: nvcc {k2_build['seconds']:.2f} s (beside "
           f"K1), both loaded after {k2_loaded:.2f} s; "
           f"{ptxas_lines(k2_build['log'], {'ILi0E': 'minsum', 'ILi1E': 'bp'})}",
           flush=True)
+    lap(6)
 
     # -- 7: K2 vs plain twin ---------------------------------------------
     rules = ("minsum", "bp")
     k2_err = dict.fromkeys(rules, 0.0)
 
-    def float_llrs(ebn0_db: float, batch: int, seed: int, true: bool = False):
+    def float_llrs(ebn0_db: float, batch: int, seed: int, true: bool = False, lay=layout):
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
-        shape = (layout.n_vars, batch)
-        sigma2 = float(sigma2_from_ebn0_db(ebn0_db, layout.code_rate))
+        shape = (lay.n_vars, batch)
+        sigma2 = float(sigma2_from_ebn0_db(ebn0_db, lay.code_rate))
         if true:
             noise = torch.randn(shape, generator=g, device=dev)
             zeros = torch.zeros(shape, dtype=torch.int8, device=dev)
@@ -299,6 +391,7 @@ def main() -> None:
                   f"early_exit={early_exit} batch 512 tile {dec.batch_tile}: outputs, "
                   f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
                   flush=True)
+    lap(7)
 
     # -- 8: the float cells ------------------------------------------------
     k2_launches = {}
@@ -319,6 +412,7 @@ def main() -> None:
               f"{sc['ebn0_db']} dB over {point.blocks} blocks: FER {point.fer:.5f}, "
               f"BER {point.ber:.3e}, mean iterations {point.mean_iterations:.3f}",
               flush=True)
+    lap(8)
 
     # -- 9: encoded chain vs the reference curves --------------------------
     H = get_model("wlan-1296").make_h()
@@ -348,6 +442,7 @@ def main() -> None:
               f"{point.mean_iterations:.3f}", flush=True)
         if not ok:
             raise AssertionError(f"encoded {decoder_name} FER or BER outside its band")
+    lap(9)
 
     # -- 10: one decode at batch 4096, K2 and the plain decoder ------------
     k2_ms, k2_plain_ms = {}, {}
@@ -371,6 +466,192 @@ def main() -> None:
               f"ms (tile {dec.batch_tile}), plain whole-batch decoder "
               f"{k2_plain_ms[rule]:.1f} ms on {card}; outputs equal", flush=True)
 
+    lap(10)
+
+    # -- 11: K3 and K4 build (started in phase 2) ---------------------------
+    hbm_names = {
+        "seed_kernel": "seed", "cn_kernelILi0E": "cn minsum", "cn_kernelILi1E": "cn bp",
+        "cn_kernel": "cn", "vn_kernel": "vn", "syndrome_kernel": "syndrome",
+        "exit_kernel": "exit", "decide_kernel": "decide",
+    }
+    for name, b in hbm_builds.items():
+        print(f"[11 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1 and K2), all "
+              f"four loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
+              flush=True)
+    lap(11)
+
+    # -- 12: K3 vs plain twin ------------------------------------------------
+    dv_spec = get_model("dvbs2-64800")
+    dv_H = dv_spec.make_h()
+    dv_layout = dv_spec.make_layout(dv_H)
+    for name in ("dvbs2_T16_0.6", "dvbs2_T16_0.8"):
+        configs[name] = DecoderConfig.load(str(CONFIG_DIR / f"{name}.npz"))
+    k3_err = 0
+    k3_cases = [  # (code, layout, config, Eb/N0, batch, early exit)
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, True),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, False),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.8", DV_EXIT_DB, 512, True),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 200, True),
+        ("wlan", layout, "wlan_T16_0.8", 0.8, 512, True),
+    ]
+    for k, (code, lay, name, ebn0, batch, early_exit) in enumerate(k3_cases):
+        ch = clusters(configs[name], ebn0, batch, seed=200 + k, lay=lay)
+        dec = HBMFusedIBDecoder(lay, configs[name].tables, early_exit=early_exit)
+        got = dec(ch)
+        ref = ib_lut_decode_tiled(
+            lay, dec.trellis(dev), ch, dec.batch_tile, early_exit=early_exit
+        )
+        torch.cuda.synchronize()
+        err = int((got.outputs - ref.outputs).abs().max())
+        k3_err = max(k3_err, err)
+        if not same(got, ref):
+            raise AssertionError(
+                f"K3 disagrees with its twin on {name} {ebn0} dB batch {batch} "
+                f"early_exit={early_exit}: max |out diff| {err}, iterations "
+                f"{float(got.iterations)} vs {float(ref.iterations)}"
+            )
+        if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
+            raise AssertionError(f"K3's early exit did not fire at {ebn0} dB")
+        print(f"[12 exact] K3 {name} {ebn0} dB early_exit={early_exit} batch {batch} tile "
+              f"{dec.batch_tile}: outputs, unsatisfied and mean iterations "
+              f"{float(got.iterations):.4f} equal", flush=True)
+    lap(12)
+
+    # -- 13: K4 vs plain twin ------------------------------------------------
+    k4_err = dict.fromkeys(rules, 0.0)
+    k4_cases = [  # (code, layout, label, Eb/N0, true LLRs, max_iters, early exit, batch)
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, True, 256),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, False, 256),
+        ("dvbs2", dv_layout, "quantized", DV_EXIT_DB, False, 50, True, 512),
+        ("dvbs2", dv_layout, "true", 1.0, True, 50, True, 256),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 1, True, 256),
+        ("wlan", layout, "quantized", 2.0, False, 50, True, 512),
+    ]
+    for rule in rules:
+        for k, (code, lay, label, ebn0, true, imax, early_exit, batch) in enumerate(k4_cases):
+            ch = float_llrs(ebn0, batch, seed=300 + k, true=true, lay=lay)
+            dec = HBMFloatDecoder(lay, rule, max_iters=imax, early_exit=early_exit)
+            got = dec(ch)
+            ref = float_decode_tiled(lay, ch, rule, dec.batch_tile, imax, early_exit=early_exit)
+            torch.cuda.synchronize()
+            err = float((got.outputs - ref.outputs).abs().max())
+            k4_err[rule] = max(k4_err[rule], err)
+            if not same(got, ref):
+                raise AssertionError(
+                    f"K4 {rule} disagrees with its twin on {code} {label} LLRs at "
+                    f"{ebn0} dB, max_iters {imax}, early_exit={early_exit}: max |out "
+                    f"diff| {err}, iterations {float(got.iterations)} vs "
+                    f"{float(ref.iterations)}"
+                )
+            if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
+                raise AssertionError(f"K4 {rule}'s early exit did not fire at {ebn0} dB")
+            print(f"[13 exact] K4 {rule} {code} {label} LLRs {ebn0} dB max_iters {imax} "
+                  f"early_exit={early_exit} batch {batch} tile {dec.batch_tile}: outputs, "
+                  f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
+                  flush=True)
+    lap(13)
+
+    # -- 14: the DVB-S2 cells and their reference points -----------------------
+    dv_encoder = LDPCEncoder(dv_H)
+    hbm_launches = {}
+    dv_bands = [  # (cell or config, decoder, Eb/N0, FER, BER, reference file)
+        ("dvbs2_ib_hbm_encoded", "ib", 1.0, 1.0, 0.004030, "dvbs2_ib_enc"),
+        ("dvbs2_T16_0.8", "ib", 0.9, 0.5859375, 0.02623, "dvbs2_ib_enc_d08"),
+        ("dvbs2_minsum", "minsum", 1.0, 1.0, 0.14708, "dvbs2_minsum"),
+    ]
+    for name, decoder_name, ebn0, fer_ref, ber_ref, ref_name in dv_bands:
+        if name in DVBS2_SCENARIOS:
+            sim = build_dvbs2_sim(name, dev, layout=dv_layout, encoder=dv_encoder)
+        else:
+            tables = configs[name].tables
+            sim = BERSimulator(
+                dv_layout, "ib", device=dev, chain="encoded", encoder=dv_encoder,
+                trellis=DeviceTrellis.from_tables(tables, dev),
+                cardinality_t_channel=tables.cardinality_t_channel,
+                batch_per_device=1024, seed=0,
+            )
+        if sim.backend != "hbm":
+            raise AssertionError(f"{name} runs on backend {sim.backend!r}, not 'hbm'")
+        decoder = sim.fused_decoder
+        decoder.launches = 0
+        steps, rate = 0, None
+        if name in DVBS2_SCENARIOS:
+            rate = measure_sim_throughput(sim, ebn0)
+            steps = (1 + 6) * sim.steps_per_dispatch
+        point = dispatch_point(sim, ebn0, DV_DISPATCHES)
+        steps += DV_DISPATCHES * sim.steps_per_dispatch
+        if decoder.launches != steps:
+            raise AssertionError(f"{decoder.launches} K3/K4 launches for {steps} steps")
+        if rate is not None:
+            hbm_launches[decoder_name] = decoder.launches
+        fer_band, ber_band = ref_bands(point, fer_ref)
+        print(f"[14 cell] {name} ({decoder_name}, {type(decoder).__name__}): "
+              + (f"{rate / 1e6:.2f} Mbit/s coded on {card}; " if rate else "")
+              + f"{decoder.launches} launches for {steps} steps; {ebn0} dB over "
+              f"{point['blocks']} blocks: FER {point['fer']:.5f} ({fer_ref} +- "
+              f"{fer_band:.5f}), BER {point['ber']:.6f} ({ber_ref} +- {ber_band:.6f}, "
+              f"results/ber/{ref_name}.json), mean iterations "
+              f"{point['iterations']:.3f}", flush=True)
+        if abs(point["fer"] - fer_ref) > fer_band or abs(point["ber"] - ber_ref) > ber_band:
+            raise AssertionError(f"{name} FER or BER at {ebn0} dB outside its band")
+    # BP through run_point and IB through the CLI, each with backend 'auto'.
+    sim = BERSimulator(dv_layout, "bp", device=dev, max_iters=50, batch_per_device=256)
+    sim.fused_decoder.launches = 0
+    point = sim.run_point(1.0, min_errors=10**12, max_blocks=512)
+    hbm_launches["bp"] = sim.fused_decoder.launches
+    if sim.backend != "hbm" or hbm_launches["bp"] != 2:
+        raise AssertionError(f"BP ran {hbm_launches['bp']} decodes on {sim.backend!r}")
+    print(f"[14 bp] dvbs2 BP 1.0 dB through run_point: {point.blocks} blocks, FER "
+          f"{point.fer:.4f}, BER {point.ber:.5f}, {hbm_launches['bp']} K4 launches",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        points = simulate.main([
+            "--model", "dvbs2-64800", "--config", str(CONFIG_DIR / "dvbs2_T16_0.6.npz"),
+            "--chain", "encoded", "--start-db", "1.0", "--max-db", "1.0",
+            "--batch-per-device", "256", "--max-blocks-per-point", "256",
+            "--min-errors", "1", "--results", str(Path(tmp) / "dvbs2_ib.json"),
+        ])
+    if not (points[0]["blocks"] == 256 and 0.0 < points[0]["ber"] < 0.02):
+        raise AssertionError(f"the DVB-S2 CLI run gave {points}")
+    lap(14)
+
+    # -- 15: one DVB-S2 decode at batch 1024, K3/K4 and the plain decoders -------
+    hbm_ms, hbm_plain_ms = {}, {}
+    tables = configs["dvbs2_T16_0.6"].tables
+    inputs = {
+        "ib": clusters(configs["dvbs2_T16_0.6"], 1.0, 1024, seed=99, lay=dv_layout),
+        "minsum": float_llrs(1.0, 1024, seed=99, lay=dv_layout),
+    }
+    inputs["bp"] = inputs["minsum"]
+    for kind in ("ib",) + rules:
+        if kind == "ib":
+            dec = HBMFusedIBDecoder(dv_layout, tables, early_exit=False)
+            plain_decode = lambda: ib_lut_decode(
+                dv_layout, dec.trellis(dev), inputs["ib"], early_exit=False
+            )
+        else:
+            dec = HBMFloatDecoder(dv_layout, kind, max_iters=50, early_exit=False)
+            plain_decode = lambda: plain[kind](dv_layout, inputs[kind], 50, early_exit=False)
+        hbm_ms[kind] = cuda_ms(lambda: dec(inputs[kind]), reps=3)
+        got = dec(inputs[kind])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain_decode()
+        torch.cuda.synchronize()
+        hbm_plain_ms[kind] = (time.perf_counter() - t0) * 1e3
+        err = float((got.outputs - ref.outputs).abs().max())
+        if kind == "ib":
+            k3_err = max(k3_err, int(err))
+        else:
+            k4_err[kind] = max(k4_err[kind], err)
+        if not same(got, ref):
+            raise AssertionError(f"{kind} on the card disagrees with the plain decoder ({err})")
+        print(f"[15 times] dvbs2 batch 1024 {kind} decode, 49 bodies: "
+              f"{'K3' if kind == 'ib' else 'K4'} {hbm_ms[kind]:.3f} ms (tile "
+              f"{dec.batch_tile}), plain whole-batch decoder {hbm_plain_ms[kind]:.1f} ms "
+              f"on {card}; outputs equal", flush=True)
+    lap(15)
+
     k2_source = "informationbottleneckdecodingldpc_torch/csrc/float_fused.cu"
     k2_replaces = "informationbottleneckdecodingldpc_tpu/kernels/float_fused.py:143"
     print(json.dumps({"kernels": [{
@@ -391,6 +672,24 @@ def main() -> None:
         "max_abs_err": k2_err[rule],
         "ms": k2_ms[rule],
         "plain_ms": k2_plain_ms[rule],
+    } for rule in rules] + [{
+        "name": "ib_lut_hbm",
+        "route": "cuda",
+        "source": "informationbottleneckdecodingldpc_torch/csrc/ib_lut_hbm.cu",
+        "replaces": "informationbottleneckdecodingldpc_tpu/kernels/ib_lut_hbm.py:246",
+        "launches": hbm_launches["ib"],
+        "max_abs_err": k3_err,
+        "ms": hbm_ms["ib"],
+        "plain_ms": hbm_plain_ms["ib"],
+    }] + [{
+        "name": f"float_hbm_{rule}",
+        "route": "cuda",
+        "source": "informationbottleneckdecodingldpc_torch/csrc/float_hbm.cu",
+        "replaces": "informationbottleneckdecodingldpc_tpu/kernels/float_hbm.py:139",
+        "launches": hbm_launches[rule],
+        "max_abs_err": k4_err[rule],
+        "ms": hbm_ms[rule],
+        "plain_ms": hbm_plain_ms[rule],
     } for rule in rules]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

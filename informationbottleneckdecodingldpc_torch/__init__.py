@@ -19,11 +19,14 @@ the numpy host code of ``codes`` (Tanner graphs, code constructors), ``ib``
 - ``ops``        leave-one-out trellis folds with direct ``lut[a, b]``
                  lookups; min-sum, box-plus and variable-node float folds.
 - ``kernels``    hand-written Hopper kernels (CUDA C++ under ``csrc/``) with
-                 their plain PyTorch twins; built lazily at first CUDA use.
+                 their plain PyTorch twins, built lazily at first CUDA use:
+                 the IB and float decoders with views in shared memory
+                 (``FusedIBDecoder``, ``FusedFloatDecoder``) or in device
+                 memory (``HBMFusedIBDecoder``, ``HBMFloatDecoder``).
 - ``sim``        Monte-Carlo BER engine for the all-zeros and encoded BPSK
                  chains.
 - ``models``     named codes with the port's decode layout.
-- ``utils``      the headline and float-decoder throughput scenarios.
+- ``utils``      the headline, float-decoder and DVB-S2 throughput scenarios.
 - ``cli``        a reduced BER sweep command line.
 """
 

@@ -13,6 +13,14 @@ Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
       --model wlan-1296 --decoder minsum --chain encoded \\
       --start-db 1.2 --max-db 1.6 --step-db 0.4 --results wlan_minsum.json
+  python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
+      --model dvbs2-64800 --config results/configs/dvbs2_T16_0.6.npz \\
+      --chain encoded --start-db 0.9 --max-db 1.1 --batch-per-device 1024 \\
+      --results dvbs2_ib.json
+
+DVB-S2 N=64800 does not fit the shared-memory kernels, so the engine's
+``backend='auto'`` decodes it with the device-memory kernels K3 (IB) and K4
+(min-sum, BP).
 """
 
 from __future__ import annotations

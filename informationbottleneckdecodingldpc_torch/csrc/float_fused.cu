@@ -24,6 +24,7 @@
 // into something torch's elementwise kernels do not compute. Min-sum is exact
 // up to the sign of a zero; BP uses expf and log1pf (no fast math). Padding
 // columns of the last tile hold LLR 0 and take part in that tile's exit test.
+// The node rules live in float_groups.cuh, which K4 (float_hbm.cu) shares.
 //
 // What bounds it on this card (counts from shapes, not measurements): one
 // CTA per SM, set by shared memory. On WLAN N=1296 a codeword needs
@@ -42,9 +43,10 @@
 
 #include <cuda_runtime.h>
 
-#include <cmath>
 #include <cstddef>
 #include <cstdint>
+
+#include "float_groups.cuh"
 
 namespace {
 
@@ -52,9 +54,8 @@ namespace {
 // __launch_bounds__ then caps registers at 64.
 constexpr int kThreads = 1024;
 constexpr int kMaxDegree = 16;
-constexpr float kLlrMax = 150.0f;
-constexpr int kMinSum = 0;
-constexpr int kBP = 1;
+using float_llr::kBP;
+using float_llr::kMinSum;
 
 struct Params {
   const float* llrs;         // [n_vars, batch]
@@ -78,210 +79,6 @@ __host__ __device__ inline size_t shared_bytes(const Params& p) {
          + sizeof(float) * size_t(2 * p.n_edges + p.n_vars) * p.bt;  // A, B, CHG
 }
 
-// torch.sign / jnp.sign: +1, -1, and the input itself for +-0 (and NaN).
-__device__ __forceinline__ float sign_of(float x) {
-  return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
-}
-
-__device__ __forceinline__ float clip_llr(float x) {
-  return fminf(fmaxf(x, -kLlrMax), kLlrMax);
-}
-
-// ops/float_ops.py boxplus, operation by operation.
-__device__ __forceinline__ float boxplus(float a, float b) {
-  const float sgn = __fmul_rn(sign_of(a), sign_of(b));
-  const float mag = fminf(fabsf(a), fabsf(b));
-  const float corr = __fsub_rn(log1pf(expf(-fabsf(__fadd_rn(a, b)))),
-                               log1pf(expf(-fabsf(__fsub_rn(a, b)))));
-  return __fadd_rn(__fmul_rn(sgn, mag), corr);
-}
-
-// Min-sum check update: every output is (product of the other signs) x
-// (smallest other magnitude). The sign product is taken as the parity of the
-// other negative inputs, or 0 when another input is 0 (sign(0) = 0): the
-// same values as float_ops.py's prefix/suffix products. The magnitude is
-// min2 where |m_j| == min1, else min1 (min2 == min1 on ties).
-template <int D>
-__device__ void cn_minsum_group(const float* __restrict__ src, float* __restrict__ dst,
-                                const int32_t* __restrict__ route, int off, int n,
-                                int bt) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    float m[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-    float out[D];
-    if constexpr (D == 2) {
-      out[0] = m[1];
-      out[1] = m[0];
-    } else {
-      float min1 = fabsf(m[0]);
-      float min2 = INFINITY;
-      int zeros = m[0] == 0.f;
-      int negs = m[0] < 0.f;
-#pragma unroll
-      for (int k = 1; k < D; ++k) {
-        const float a = fabsf(m[k]);
-        min2 = fminf(min2, fmaxf(min1, a));
-        min1 = fminf(min1, a);
-        zeros += m[k] == 0.f;
-        negs ^= m[k] < 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const float s = zeros - int(m[j] == 0.f) > 0
-                            ? 0.f
-                            : ((negs ^ int(m[j] < 0.f)) ? -1.f : 1.f);
-        out[j] = __fmul_rn(s, fabsf(m[j]) == min1 ? min2 : min1);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      dst[__ldg(&route[off + k * n + node]) * bt + c] = out[k];
-  }
-}
-
-// BP check update: the pairwise box-plus fold of float_ops.py
-// associative_leave_one_out. suf[k] = fold(m_k..m_{D-1}) = m_k [+] suf[k+1];
-// out_0 = suf[1], out_j = pre_{j-1} [+] suf[j+1], out_{D-1} = pre_{D-2},
-// with pre_j = pre_{j-1} [+] m_j. Inputs are read again from shared memory
-// in the forward walk, so only the suffixes live in registers.
-template <int D>
-__device__ void cn_bp_group(const float* __restrict__ src, float* __restrict__ dst,
-                            const int32_t* __restrict__ route, int off, int n, int bt) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const float* in = src + (off + node) * bt + c;  // message k at in[k * n * bt]
-    const int32_t* rt = route + off + node;         // its route at rt[k * n]
-    if constexpr (D == 2) {
-      const float m0 = in[0], m1 = in[n * bt];
-      dst[__ldg(&rt[0]) * bt + c] = m1;
-      dst[__ldg(&rt[n]) * bt + c] = m0;
-    } else {
-      float suf[D];
-      suf[D - 1] = in[(D - 1) * n * bt];
-#pragma unroll
-      for (int k = D - 2; k >= 1; --k) suf[k] = boxplus(in[k * n * bt], suf[k + 1]);
-      dst[__ldg(&rt[0]) * bt + c] = suf[1];
-      float pre = in[0];
-#pragma unroll
-      for (int j = 1; j < D - 1; ++j) {
-        dst[__ldg(&rt[j * n]) * bt + c] = boxplus(pre, suf[j + 1]);
-        pre = boxplus(pre, in[j * n * bt]);
-      }
-      dst[__ldg(&rt[(D - 1) * n]) * bt + c] = pre;
-    }
-  }
-}
-
-// Variable update: total = ch + ((m0 + m1) + m2 ...), out_j =
-// clip(total - m_j); degree 1 forwards clip(ch).
-template <int D>
-__device__ void vn_group(const float* __restrict__ src, float* __restrict__ dst,
-                         const float* __restrict__ chg, const int32_t* __restrict__ route,
-                         int off, int n, int node_off, int bt) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const float ch = chg[(node_off + node) * bt + c];
-    if constexpr (D == 1) {
-      dst[__ldg(&route[off + node]) * bt + c] = clip_llr(ch);
-    } else {
-      float m[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      float s = m[0];
-#pragma unroll
-      for (int k = 1; k < D; ++k) s = __fadd_rn(s, m[k]);
-      const float total = __fadd_rn(ch, s);
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[off + k * n + node]) * bt + c] = clip_llr(__fsub_rn(total, m[k]));
-    }
-  }
-}
-
-#define DEGREES_2_TO_16(X) \
-  X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
-#define DEGREES_1_TO_16(X) X(1) DEGREES_2_TO_16(X)
-
-template <int RULE>
-__device__ void cn_pass(const Params& p, const float* src, float* dst) {
-  for (int g = 0; g < p.n_cn_groups; ++g) {
-    const int off = p.cn_groups[3 * g], n = p.cn_groups[3 * g + 1];
-    switch (p.cn_groups[3 * g + 2]) {
-#define CN_CASE(D)                                                  \
-  case D:                                                           \
-    if constexpr (RULE == kMinSum)                                  \
-      cn_minsum_group<D>(src, dst, p.cn_route, off, n, p.bt);       \
-    else                                                            \
-      cn_bp_group<D>(src, dst, p.cn_route, off, n, p.bt);           \
-    break;
-      DEGREES_2_TO_16(CN_CASE)
-#undef CN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-__device__ void vn_pass(const Params& p, const float* src, float* dst, const float* chg) {
-  for (int g = 0; g < p.n_vn_groups; ++g) {
-    const int off = p.vn_groups[4 * g], n = p.vn_groups[4 * g + 1];
-    const int node_off = p.vn_groups[4 * g + 3];
-    switch (p.vn_groups[4 * g + 2]) {
-#define VN_CASE(D)                                                  \
-  case D:                                                           \
-    vn_group<D>(src, dst, chg, p.vn_route, off, n, node_off, p.bt); \
-    break;
-      DEGREES_1_TO_16(VN_CASE)
-#undef VN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-// Per codeword, the number of checks whose inputs in A hold an odd count
-// of negative values, added into unsat[c].
-__device__ void syndrome_pass(const Params& p, const float* A, int* unsat) {
-  for (int g = 0; g < p.n_cn_groups; ++g) {
-    const int off = p.cn_groups[3 * g], n = p.cn_groups[3 * g + 1];
-    const int d = p.cn_groups[3 * g + 2];
-    const int items = n * p.bt;
-    for (int t = threadIdx.x; t < items; t += blockDim.x) {
-      const int node = t / p.bt;
-      const int c = t - node * p.bt;
-      int parity = 0;
-      for (int k = 0; k < d; ++k) parity ^= A[(off + k * n + node) * p.bt + c] < 0.f;
-      if (parity) atomicAdd(&unsat[c], 1);
-    }
-  }
-}
-
-// Decision: ch + ((B_0 + B_1) + ...), unclamped, at the natural index.
-__device__ void decide_pass(const Params& p, const float* B, const float* chg, int b0) {
-  for (int g = 0; g < p.n_vn_groups; ++g) {
-    const int off = p.vn_groups[4 * g], n = p.vn_groups[4 * g + 1];
-    const int d = p.vn_groups[4 * g + 2], node_off = p.vn_groups[4 * g + 3];
-    const int items = n * p.bt;
-    for (int t = threadIdx.x; t < items; t += blockDim.x) {
-      const int node = t / p.bt;
-      const int c = t - node * p.bt;
-      if (b0 + c >= p.batch) continue;
-      float s = B[(off + node) * p.bt + c];
-      for (int k = 1; k < d; ++k) s = __fadd_rn(s, B[(off + k * n + node) * p.bt + c]);
-      p.outputs[size_t(__ldg(&p.node_var[node_off + node])) * p.batch + b0 + c] =
-          __fadd_rn(chg[(node_off + node) * p.bt + c], s);
-    }
-  }
-}
-
 template <int RULE>
 __global__ void __launch_bounds__(kThreads) float_fused_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -291,6 +88,9 @@ __global__ void __launch_bounds__(kThreads) float_fused_kernel(Params p) {
   float* A = reinterpret_cast<float*>(smem + 2 * sizeof(int) * bt);  // CN view
   float* B = A + size_t(p.n_edges) * bt;                             // VN view
   float* CHG = B + size_t(p.n_edges) * bt;  // channel LLR per group-ordered VN
+  const float_llr::Graph g{p.cn_groups,   p.vn_groups,   p.cn_route, p.vn_route,
+                          p.node_var,    p.n_cn_groups, p.n_vn_groups, bt};
+  const int t0 = threadIdx.x, step = blockDim.x;
 
   // Seed: A <- channel LLR of each row's variable; CHG <- channel LLR of each
   // group-ordered variable node. Padding columns 0.
@@ -310,7 +110,7 @@ __global__ void __launch_bounds__(kThreads) float_fused_kernel(Params p) {
     for (int c = threadIdx.x; c < bt; c += blockDim.x) unsat[c] = 0;
     for (int t = threadIdx.x; t < p.n_edges * bt; t += blockDim.x) B[t] = 0.f;
     __syncthreads();
-    syndrome_pass(p, A, unsat);
+    float_llr::syndrome_pass(g, A, unsat, t0, step);
     __syncthreads();
   } else {
     __syncthreads();
@@ -320,13 +120,13 @@ __global__ void __launch_bounds__(kThreads) float_fused_kernel(Params p) {
       const bool count = p.early_exit || i == p.imax - 2;
       if (count)
         for (int c = threadIdx.x; c < bt; c += blockDim.x) u[c] = 0;
-      cn_pass<RULE>(p, A, B);
+      float_llr::cn_pass<RULE>(g, A, B, t0, step);
       __syncthreads();
-      vn_pass(p, B, A, CHG);
+      float_llr::vn_pass(g, B, A, CHG, t0, step);
       __syncthreads();
       iters = i + 1;
       if (count) {
-        syndrome_pass(p, A, u);
+        float_llr::syndrome_pass(g, A, u, t0, step);
         __syncthreads();
         last = u;
         if (p.early_exit) {
@@ -339,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) float_fused_kernel(Params p) {
     }
   }
 
-  decide_pass(p, B, CHG, b0);
+  float_llr::decide_pass(g, B, CHG, p.outputs, b0, p.batch, t0, step);
   for (int c = threadIdx.x; c < bt; c += blockDim.x) {
     if (b0 + c >= p.batch) continue;
     p.unsat_out[b0 + c] = last[c];

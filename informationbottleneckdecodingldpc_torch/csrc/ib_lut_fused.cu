@@ -24,7 +24,8 @@
 // every node output is a strict left-to-right fold of its input sequence
 // with the own edge removed, step p through pairwise LUT p-1 indexed
 // lut[state][next]. Padding columns of the last tile hold cluster 0 and take
-// part in that tile's exit test, as in the JAX kernel.
+// part in that tile's exit test, as in the JAX kernel. The node folds live in
+// ib_lut_groups.cuh, which K3 (ib_lut_hbm.cu) shares.
 //
 // What bounds it on this card: the work is dependent byte lookups into small
 // tables plus routed byte scatters, all in shared memory, and three block-wide
@@ -45,7 +46,11 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "ib_lut_groups.cuh"
+
 namespace {
+
+using ib_lut::Luts;
 
 // 1024 threads hold more dependent lookups in flight than 512 (15% faster on
 // the WLAN headline on an H100 SXM); __launch_bounds__ then caps registers at 64, which the
@@ -84,191 +89,6 @@ __host__ __device__ inline size_t shared_bytes(const Params& p) {
          + size_t(p.d_c_max + p.d_v_max) * p.t_decoder;
 }
 
-// Pairwise LUTs of one pass: slot l at base + l*slot, row stride `stride`.
-struct Luts {
-  const uint8_t* base;
-  int slot;
-  int stride;
-  __device__ __forceinline__ uint8_t operator()(int l, int a, int b) const {
-    return base[l * slot + a * stride + b];
-  }
-};
-
-template <int D>
-__device__ void cn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                         Luts lut, const uint8_t* __restrict__ match_row,
-                         const int32_t* __restrict__ route, int off, int n, int bt,
-                         int thresh, int* unsat) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    uint8_t m[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-    if (unsat != nullptr) {
-      int parity = 0;
-#pragma unroll
-      for (int k = 0; k < D; ++k) parity ^= int(m[k] < thresh);
-      if (parity) atomicAdd(&unsat[c], 1);
-    }
-    uint8_t out[D];
-    if constexpr (D == 2) {
-      out[0] = m[1];
-      out[1] = m[0];
-    } else {
-      // Prefixes f[k] = fold(m_0..m_k), k = 1..D-2.
-      uint8_t f[D];
-      f[1] = lut(0, m[0], m[1]);
-#pragma unroll
-      for (int k = 2; k < D - 1; ++k) f[k] = lut(k - 1, f[k - 1], m[k]);
-      // Output j >= 2 continues prefix f[j-1]; message k takes LUT k-2.
-#pragma unroll
-      for (int j = 2; j < D; ++j) {
-        uint8_t s = f[j - 1];
-#pragma unroll
-        for (int k = j + 1; k < D; ++k) s = lut(k - 2, s, m[k]);
-        out[j] = s;
-      }
-      uint8_t s0 = lut(0, m[1], m[2]);
-      uint8_t s1 = lut(0, m[0], m[2]);
-#pragma unroll
-      for (int k = 3; k < D; ++k) {
-        s0 = lut(k - 2, s0, m[k]);
-        s1 = lut(k - 2, s1, m[k]);
-      }
-      out[0] = s0;
-      out[1] = s1;
-    }
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];
-  }
-}
-
-template <int D>
-__device__ void vn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                         const uint8_t* __restrict__ chg, Luts lut,
-                         const uint8_t* __restrict__ match_row,
-                         const int32_t* __restrict__ route, int off, int n,
-                         int node_off, int bt) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const uint8_t ch = chg[(node_off + node) * bt + c];
-    if constexpr (D == 1) {
-      // Degree-1 variable nodes forward the channel, unaligned.
-      dst[__ldg(&route[off + node]) * bt + c] = ch;
-    } else {
-      uint8_t m[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      // Prefixes f[k] = fold(ch, m_0..m_k); message k >= 1 takes LUT k.
-      uint8_t f[D];
-      f[0] = lut(0, ch, m[0]);
-#pragma unroll
-      for (int k = 1; k < D - 1; ++k) f[k] = lut(k, f[k - 1], m[k]);
-      uint8_t out[D];
-      // Output j continues f[j-1]; message k then takes LUT k-1.
-#pragma unroll
-      for (int j = 1; j < D; ++j) {
-        uint8_t s = f[j - 1];
-#pragma unroll
-        for (int k = j + 1; k < D; ++k) s = lut(k - 1, s, m[k]);
-        out[j] = s;
-      }
-      uint8_t s0 = lut(0, ch, m[1]);
-#pragma unroll
-      for (int k = 2; k < D; ++k) s0 = lut(k - 1, s0, m[k]);
-      out[0] = s0;
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];
-    }
-  }
-}
-
-template <int D>
-__device__ void decide_group(const uint8_t* __restrict__ src,
-                             const uint8_t* __restrict__ chg, Luts lut,
-                             const int32_t* __restrict__ node_var,
-                             int32_t* __restrict__ outputs, int off, int n,
-                             int node_off, int bt, int b0, int batch) {
-  const int items = n * bt;
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    if (b0 + c >= batch) continue;
-    uint8_t s = lut(0, chg[(node_off + node) * bt + c], src[(off + node) * bt + c]);
-#pragma unroll
-    for (int k = 1; k < D; ++k) s = lut(k, s, src[(off + k * n + node) * bt + c]);
-    outputs[size_t(__ldg(&node_var[node_off + node])) * batch + b0 + c] = s;
-  }
-}
-
-#define DEGREES_2_TO_16(X) \
-  X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
-#define DEGREES_1_TO_16(X) X(1) DEGREES_2_TO_16(X)
-
-__device__ void cn_pass(const Params& p, const uint8_t* src, uint8_t* dst, Luts lut,
-                        const uint8_t* match, int* unsat) {
-  for (int g = 0; g < p.n_cn_groups; ++g) {
-    const int off = p.cn_groups[3 * g], n = p.cn_groups[3 * g + 1];
-    const int d = p.cn_groups[3 * g + 2];
-    const uint8_t* row = match + (d - 1) * p.t_decoder;
-    switch (d) {
-#define CN_CASE(D)                                                                \
-  case D:                                                                         \
-    cn_group<D>(src, dst, lut, row, p.cn_route, off, n, p.bt, p.t_decoder / 2, \
-                unsat);                                                           \
-    break;
-      DEGREES_2_TO_16(CN_CASE)
-#undef CN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-__device__ void vn_pass(const Params& p, const uint8_t* src, uint8_t* dst,
-                        const uint8_t* chg, Luts lut, const uint8_t* match) {
-  for (int g = 0; g < p.n_vn_groups; ++g) {
-    const int off = p.vn_groups[4 * g], n = p.vn_groups[4 * g + 1];
-    const int d = p.vn_groups[4 * g + 2], node_off = p.vn_groups[4 * g + 3];
-    const uint8_t* row = match + (d - 1) * p.t_decoder;
-    switch (d) {
-#define VN_CASE(D)                                                                 \
-  case D:                                                                          \
-    vn_group<D>(src, dst, chg, lut, row, p.vn_route, off, n, node_off, p.bt); \
-    break;
-      DEGREES_1_TO_16(VN_CASE)
-#undef VN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-__device__ void decide_pass(const Params& p, const uint8_t* src, const uint8_t* chg,
-                            Luts lut, int b0) {
-  for (int g = 0; g < p.n_vn_groups; ++g) {
-    const int off = p.vn_groups[4 * g], n = p.vn_groups[4 * g + 1];
-    const int d = p.vn_groups[4 * g + 2], node_off = p.vn_groups[4 * g + 3];
-    switch (d) {
-#define DEC_CASE(D)                                                             \
-  case D:                                                                       \
-    decide_group<D>(src, chg, lut, p.node_var, p.outputs, off, n, node_off, p.bt, \
-                    b0, p.batch);                                               \
-    break;
-      DEGREES_1_TO_16(DEC_CASE)
-#undef DEC_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
 __device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* __restrict__ src,
                                       int n) {
   for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = __ldg(&src[t]);
@@ -294,6 +114,9 @@ __global__ void __launch_bounds__(kThreads) ib_lut_fused_kernel(Params p) {
   const Luts cn_lut0{TC, p.slot, p.t_channel};  // iteration-0 tables: [.., Tch]
   const Luts cn_lut{TC, p.slot, p.t_decoder};
   const Luts vn_lut{TV, p.slot, p.t_decoder};
+  const ib_lut::Graph g{p.cn_groups,   p.vn_groups,   p.cn_route, p.vn_route, p.node_var,
+                        p.n_cn_groups, p.n_vn_groups, bt,         p.t_decoder};
+  const int t0 = threadIdx.x, step = blockDim.x;
 
   // Seed: CN view <- channel cluster of each row's variable; CHG <- the
   // channel cluster of each group-ordered variable node. Padding columns 0.
@@ -312,7 +135,7 @@ __global__ void __launch_bounds__(kThreads) ib_lut_fused_kernel(Params p) {
   stage(TC, p.cn_tab, cn_stage);
   stage(MC, p.match_cn, mc_stage);
   __syncthreads();
-  cn_pass(p, A, B, cn_lut0, MC, nullptr);
+  ib_lut::cn_pass(g, A, B, cn_lut0, MC, nullptr, t0, step);
   __syncthreads();
 
   int iters = 0;
@@ -324,9 +147,9 @@ __global__ void __launch_bounds__(kThreads) ib_lut_fused_kernel(Params p) {
     stage(MC, p.match_cn + size_t(i + 1) * mc_stage, mc_stage);
     for (int c = threadIdx.x; c < bt; c += blockDim.x) u[c] = 0;
     __syncthreads();
-    vn_pass(p, B, A, CHG, vn_lut, MV);
+    ib_lut::vn_pass(g, B, A, CHG, vn_lut, MV, t0, step);
     __syncthreads();
-    cn_pass(p, A, B, cn_lut, MC, u);
+    ib_lut::cn_pass(g, A, B, cn_lut, MC, u, t0, step);
     __syncthreads();
     iters = i + 1;
     if (p.early_exit) {
@@ -339,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) ib_lut_fused_kernel(Params p) {
 
   stage(TV, p.vn_tab + size_t(iters) * vn_stage, vn_stage);
   __syncthreads();
-  decide_pass(p, B, CHG, vn_lut, b0);
+  ib_lut::decide_pass(g, B, CHG, vn_lut, p.outputs, b0, p.batch, t0, step);
   for (int c = threadIdx.x; c < bt; c += blockDim.x) {
     if (b0 + c >= p.batch) continue;
     p.unsat_out[b0 + c] = iters == 0 ? 1 : unsat[((iters - 1) & 1) * bt + c];

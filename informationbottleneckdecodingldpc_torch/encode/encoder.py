@@ -63,7 +63,11 @@ def device_encoder(
         for c in cols_t[1:]:
             s = s ^ u_pad[c]
         if binv is None:
-            parity = torch.cumsum(s, dim=0, dtype=torch.int32) & 1
+            # Scanned along the contiguous dimension: torch's scan over the
+            # outer one walks each column's m rows in sequence (11.9 ms for
+            # DVB-S2 at batch 1024 on an H100).
+            scan = torch.cumsum(s.t().contiguous(), dim=1, dtype=torch.int32)
+            parity = scan.t() & 1
         else:
             parity = (binv @ s.to(torch.float32)).to(torch.int32) & 1
         return torch.cat([u, parity.to(torch.int8)])

@@ -3,9 +3,10 @@
 Each kernel source under ``csrc/`` has a plain C interface. At first CUDA use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library and loaded
 with ``ctypes``. Libraries go to ``build/kernels/`` at the checkout's root
-(listed in ``.gitignore``), in a directory keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused. A
-failed build raises with the compiler's output.
+(listed in ``.gitignore``), in a directory keyed by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or header
+is rebuilt and an unchanged one is reused. A failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
     compiling (0 when reused), ``path`` of the library and ``log``, the
     compiler's register and shared-memory report."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out_dir = BUILD_ROOT / f"{name}-{digest}"
     lib_path = out_dir / f"lib{name}.so"
@@ -81,3 +83,33 @@ def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
     log = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
     return lib, {"seconds": seconds, "path": str(lib_path), "log": log}
+
+
+class KernelLibrary:
+    """The C interface of a kernel library of ``csrc/``: ``<name>_decode``
+    returning a cudaError_t, ``<name>_error_string`` and
+    ``<name>_max_degree``, which must equal the wrapper's ``max_degree``."""
+
+    def __init__(self, name: str, decode_argtypes: list, max_degree: int):
+        lib, _ = load_library(name)
+        i = ctypes.c_int
+        self.name = name
+        self._decode = getattr(lib, f"{name}_decode")
+        self._decode.argtypes = decode_argtypes
+        self._decode.restype = i
+        self._error_string = getattr(lib, f"{name}_error_string")
+        self._error_string.argtypes = [i]
+        self._error_string.restype = ctypes.c_char_p
+        degree = getattr(lib, f"{name}_max_degree")
+        degree.argtypes = []
+        degree.restype = i
+        if degree() != max_degree:
+            raise RuntimeError(f"csrc/{name}.cu and the wrapper's MAX_DEGREE disagree")
+
+    def decode(self, *args) -> None:
+        """Launch the decode; raises with CUDA's message if it was refused."""
+        err = self._decode(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} launch failed: " + self._error_string(err).decode()
+            )

@@ -22,6 +22,7 @@ from ..decode.graph_arrays import DecodeLayout
 from ..decode.min_sum import min_sum_decode
 from .ib_lut_fused import (
     MAX_SHARED_BYTES,
+    check_channel_input,
     decode_in_tiles,
     device_arrays,
     layout_arrays,
@@ -134,20 +135,13 @@ class FusedFloatDecoder:
 
     def _launch(self, channel_llrs: torch.Tensor) -> DecodeResult:
         lay = self.layout
-        if channel_llrs.dtype != torch.float32:
-            raise TypeError("channel LLRs must be float32")
-        if channel_llrs.dim() != 2 or channel_llrs.shape[0] != lay.n_vars:
-            raise ValueError(
-                f"channel LLRs must be [{lay.n_vars}, batch], got "
-                f"{tuple(channel_llrs.shape)}"
-            )
+        check_channel_input(channel_llrs, torch.float32, lay, "channel LLRs")
         if shared_bytes(lay, self.batch_tile) > MAX_SHARED_BYTES:
             raise ValueError(
                 f"a tile of {self.batch_tile} codewords needs "
                 f"{shared_bytes(lay, self.batch_tile)} bytes of shared "
                 f"memory, more than {MAX_SHARED_BYTES}"
             )
-        lib = _library()
         device = channel_llrs.device
         ch = channel_llrs.contiguous()
         batch = ch.shape[1]
@@ -157,7 +151,7 @@ class FusedFloatDecoder:
         iters = torch.empty(batch, dtype=torch.int32, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.float_fused_decode(
+            _library().decode(
                 RULES[self.rule],
                 ch.data_ptr(), out.data_ptr(), unsat.data_ptr(), iters.data_ptr(),
                 a["seed_var"].data_ptr(), a["node_var"].data_ptr(),
@@ -166,11 +160,6 @@ class FusedFloatDecoder:
                 len(lay.cn_groups), len(lay.vn_groups), lay.n_vars, lay.n_edges,
                 batch, self.batch_tile, self.imax, int(self.early_exit),
                 stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                "float_fused launch failed: "
-                + lib.float_fused_error_string(err).decode()
             )
         self.launches += 1
         return DecodeResult(
@@ -181,18 +170,9 @@ class FusedFloatDecoder:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """K2's library, built at first use, with its C signatures declared."""
-    from ._build import load_library
+def _library():
+    """K2's library, built at first use."""
+    from ._build import KernelLibrary
 
-    lib, _ = load_library("float_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.float_fused_decode.argtypes = [i] + [p] * 10 + [i] * 8 + [p]
-    lib.float_fused_decode.restype = i
-    lib.float_fused_error_string.argtypes = [i]
-    lib.float_fused_error_string.restype = ctypes.c_char_p
-    lib.float_fused_max_degree.argtypes = []
-    lib.float_fused_max_degree.restype = i
-    if lib.float_fused_max_degree() != MAX_DEGREE:
-        raise RuntimeError("csrc/float_fused.cu and MAX_DEGREE disagree")
-    return lib
+    return KernelLibrary("float_fused", [i] + [p] * 10 + [i] * 8 + [p], MAX_DEGREE)

@@ -121,6 +121,19 @@ def ib_lut_decode_tiled(
     )
 
 
+def check_channel_input(
+    x: torch.Tensor, dtype: torch.dtype, layout: DecodeLayout, what: str
+) -> None:
+    """Refuse a channel input the kernels do not take: they read ``dtype``
+    [n_vars, batch]."""
+    if x.dtype != dtype:
+        raise TypeError(f"{what} must be {str(dtype).removeprefix('torch.')}")
+    if x.dim() != 2 or x.shape[0] != layout.n_vars:
+        raise ValueError(
+            f"{what} must be [{layout.n_vars}, batch], got {tuple(x.shape)}"
+        )
+
+
 def layout_arrays(layout: DecodeLayout) -> dict[str, np.ndarray]:
     """The layout as the fused kernels take it (int32): the variable of each
     CN-view row and of each group-ordered VN, the routes between the views,
@@ -271,14 +284,7 @@ class FusedIBDecoder:
 
     def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:
         lay = self.layout
-        if channel_clusters.dtype != torch.int32:
-            raise TypeError("channel clusters must be int32")
-        if channel_clusters.dim() != 2 or channel_clusters.shape[0] != lay.n_vars:
-            raise ValueError(
-                f"channel clusters must be [{lay.n_vars}, batch], got "
-                f"{tuple(channel_clusters.shape)}"
-            )
-        lib = _library()
+        check_channel_input(channel_clusters, torch.int32, lay, "channel clusters")
         device = channel_clusters.device
         ch = channel_clusters.contiguous()
         batch = ch.shape[1]
@@ -289,7 +295,7 @@ class FusedIBDecoder:
         t = self.tables
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.ib_lut_fused_decode(
+            _library().decode(
                 ch.data_ptr(), out.data_ptr(), unsat.data_ptr(), iters.data_ptr(),
                 a["cn_tab"].data_ptr(), a["vn_tab"].data_ptr(),
                 a["match_cn"].data_ptr(), a["match_vn"].data_ptr(),
@@ -304,11 +310,6 @@ class FusedIBDecoder:
                 lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit),
                 stream,
             )
-        if err != 0:
-            raise RuntimeError(
-                "ib_lut_fused launch failed: "
-                + lib.ib_lut_fused_error_string(err).decode()
-            )
         self.launches += 1
         return DecodeResult(
             outputs=out,
@@ -318,18 +319,9 @@ class FusedIBDecoder:
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    """K1's library, built at first use, with its C signatures declared."""
-    from ._build import load_library
+def _library():
+    """K1's library, built at first use."""
+    from ._build import KernelLibrary
 
-    lib, _ = load_library("ib_lut_fused")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ib_lut_fused_decode.argtypes = [p] * 14 + [i] * 15 + [p]
-    lib.ib_lut_fused_decode.restype = i
-    lib.ib_lut_fused_error_string.argtypes = [i]
-    lib.ib_lut_fused_error_string.restype = ctypes.c_char_p
-    lib.ib_lut_fused_max_degree.argtypes = []
-    lib.ib_lut_fused_max_degree.restype = i
-    if lib.ib_lut_fused_max_degree() != MAX_DEGREE:
-        raise RuntimeError("csrc/ib_lut_fused.cu and MAX_DEGREE disagree")
-    return lib
+    return KernelLibrary("ib_lut_fused", [p] * 14 + [i] * 15 + [p], MAX_DEGREE)

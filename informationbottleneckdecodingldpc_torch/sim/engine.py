@@ -3,8 +3,8 @@
 Port of ``sim/engine.py`` for ``decoder`` in ``ib | minsum | bp``, ``chain``
 in ``allzero | encoded``, ``llr_source`` in ``quantized | true``, BPSK, one
 device. Each step draws its random planes, builds the channel input, decodes
-(the fused kernels on a CUDA device, their plain twins on the CPU) and counts
-bit and frame errors over the counted prefix. The host loop accumulates the
+(the kernels on a CUDA device, their plain twins on the CPU) and counts bit
+and frame errors over the counted prefix. The host loop accumulates the
 counters until ``min_errors`` bit errors or ``max_blocks`` blocks.
 
 Chains:
@@ -44,11 +44,19 @@ from ..channel.quantizer import (
     sample_clusters_from_uniform,
     sample_llrs_from_uniform,
 )
+from ..construct.trellis import TrellisTables
 from ..decode.graph_arrays import DecodeLayout
 from ..decode.ib_lut import DeviceTrellis
 from ..encode.encoder import device_encoder
-from ..kernels.float_fused import FusedFloatDecoder
-from ..kernels.ib_lut_fused import FusedIBDecoder
+from ..kernels import float_fused, ib_lut_fused
+from ..kernels.float_hbm import HBMFloatDecoder
+from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
+
+# The decoder classes of each backend, IB then float.
+BACKENDS = {
+    "fused": (ib_lut_fused.FusedIBDecoder, float_fused.FusedFloatDecoder),
+    "hbm": (HBMFusedIBDecoder, HBMFloatDecoder),
+}
 
 
 @dataclasses.dataclass
@@ -86,6 +94,18 @@ def resolve_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def fused_fits(layout: DecodeLayout, tables: TrellisTables | None) -> bool:
+    """Whether one codeword of ``layout`` fits the shared memory of one CTA
+    of K1 (IB ``tables``) or K2 (``tables`` None)."""
+    if tables is not None:
+        need = ib_lut_fused.shared_bytes(
+            layout, 1, tables.cardinality_t_channel, tables.cardinality_t_decoder
+        )
+    else:
+        need = float_fused.shared_bytes(layout, 1)
+    return need <= ib_lut_fused.MAX_SHARED_BYTES
+
+
 def received_plane(bits: torch.Tensor, noise: torch.Tensor, sigma2: float) -> torch.Tensor:
     """y = bpsk(bits) + sqrt(sigma^2) n in float32: a multiply, then an add
     (XLA on the CPU fuses them into one FMA, so the JAX value may differ in
@@ -96,12 +116,18 @@ def received_plane(bits: torch.Tensor, noise: torch.Tensor, sigma2: float) -> to
 class BERSimulator:
     """BER simulator for one (code, decoder) pair on one device.
 
-    ``decoder`` is 'ib' (needs ``trellis``; decodes with
-    :class:`FusedIBDecoder`) or 'minsum' / 'bp' (need ``max_iters``; decode
-    with :class:`FusedFloatDecoder`): the CUDA kernel on a CUDA device, its
-    plain twin on the CPU, early exit per tile of ``batch_tile`` codewords
-    (``batch_tile=batch_per_device`` gives whole-batch lockstep). The
-    encoded chain needs the host ``encoder`` (the JAX package's numpy
+    ``decoder`` is 'ib' (needs ``trellis``) or 'minsum' / 'bp' (need
+    ``max_iters``). ``backend`` picks the decoder: 'fused' the shared-memory
+    kernels (K1 :class:`FusedIBDecoder`, K2 :class:`FusedFloatDecoder`;
+    raises if one codeword does not fit a CTA), 'hbm' the device-memory
+    kernels (K3 :class:`HBMFusedIBDecoder`, K4 :class:`HBMFloatDecoder`),
+    'auto' 'fused' when the layout fits and 'hbm' otherwise (DVB-S2
+    N=64800); 'xla' is not ported. Each is the CUDA kernel on a CUDA device
+    and its plain twin on the CPU. Every one of them exits early per tile of
+    ``batch_tile`` codewords (default: the kernel's), not over the whole
+    batch, so the mean iteration count depends on the tile while the BER
+    does not; ``batch_tile=batch_per_device`` gives whole-batch lockstep.
+    The encoded chain needs the host ``encoder`` (the JAX package's numpy
     ``LDPCEncoder``), whose matrices go to the device once.
     """
 
@@ -127,6 +153,7 @@ class BERSimulator:
         batch_tile: int | None = None,
         steps_per_dispatch: int = 1,
         modulation: str = "bpsk",
+        backend: str = "auto",
     ):
         if modulation != "bpsk":
             raise NotImplementedError(
@@ -142,6 +169,13 @@ class BERSimulator:
             raise ValueError(f"unknown chain {chain!r}")
         if llr_source not in ("quantized", "true"):
             raise ValueError(f"unknown llr_source {llr_source!r}")
+        if backend == "xla":
+            raise NotImplementedError(
+                "backend='xla' (the plain whole-batch decoders as a path) is not "
+                "ported yet (ROADMAP item 12)"
+            )
+        if backend not in ("auto", "fused", "hbm"):
+            raise ValueError(f"unknown backend {backend!r}")
         self.device = resolve_device(device)
         self.layout = layout
         self.decoder = decoder
@@ -176,8 +210,18 @@ class BERSimulator:
                 raise ValueError("the encoded chain requires an LDPCEncoder")
             self._info_len = encoder.k
             self._encode = device_encoder(encoder, self.device)
+        fits = fused_fits(layout, trellis.host if decoder == "ib" else None)
+        if backend == "fused" and not fits:
+            raise ValueError(
+                "backend='fused': one codeword of this layout does not fit the "
+                "shared memory of one CTA; use backend='hbm'"
+            )
+        if backend == "auto":
+            backend = "fused" if fits else "hbm"
+        self.backend = backend
+        ib_class, float_class = BACKENDS[backend]
         if decoder == "ib":
-            self.fused_decoder = FusedIBDecoder(
+            self.fused_decoder = ib_class(
                 layout,
                 trellis.host,
                 max_iters=self.max_iters,
@@ -186,7 +230,7 @@ class BERSimulator:
                 batch_tile=batch_tile,
             )
         else:
-            self.fused_decoder = FusedFloatDecoder(
+            self.fused_decoder = float_class(
                 layout,
                 rule=decoder,
                 max_iters=self.max_iters,

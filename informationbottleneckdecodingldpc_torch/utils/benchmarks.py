@@ -1,5 +1,5 @@
-"""The headline throughput scenario, the float decoders' scenarios, and
-their timing.
+"""The headline throughput scenario, the float decoders' and DVB-S2
+scenarios, and their timing.
 
 Port of ``utils/benchmarks.py``: WLAN 802.11n N=1296 R=1/2, the irregular IB
 decoder with message alignment (|T|=16, i_max=50, checked-in config
@@ -11,6 +11,14 @@ bits/s per device, the median of timed dispatches after one warm-up.
 (``scripts/bench_matrix.py`` ``wlan_minsum`` and ``wlan_bp_quant``):
 min-sum and BP on 16-level quantized LLRs, all-zeros chain at 2.0 dB,
 i_max 50, batch 4096 x 8 steps.
+
+``DVBS2_SCENARIOS`` are the matrix's DVB-S2 R=1/2 N=64800 cells
+(``scripts/bench_matrix.py`` ``dvbs2_ib_hbm_encoded`` and ``dvbs2_minsum``):
+the IB decoder with config ``dvbs2_T16_0.6`` on the encoded chain through the
+device-memory kernel K3, and min-sum on 16-level quantized LLRs on the
+all-zeros chain (K4 through ``backend='auto'``), both at 1.0 dB, i_max 50,
+counting the info bits, batch 1024 x 1 step per dispatch (the JAX matrix
+used 128 for the TPU's VMEM; a card holds 1024: K4's float views are 1.86 GB).
 """
 
 from __future__ import annotations
@@ -46,6 +54,32 @@ FLOAT_SCENARIOS = {
         seed=0,
     )
     for name, decoder in (("wlan_minsum", "minsum"), ("wlan_bp_quant", "bp"))
+}
+
+DVBS2_SCENARIOS = {
+    "dvbs2_ib_hbm_encoded": dict(
+        model="dvbs2-64800",
+        decoder="ib",
+        config="dvbs2_T16_0.6",
+        chain="encoded",
+        backend="hbm",
+        batch=1024,
+        steps_per_dispatch=1,
+        ebn0_db=1.0,
+        seed=0,
+    ),
+    "dvbs2_minsum": dict(
+        model="dvbs2-64800",
+        decoder="minsum",
+        chain="allzero",
+        llr_source="quantized",
+        backend="auto",
+        batch=1024,
+        steps_per_dispatch=1,
+        max_iters=50,
+        ebn0_db=1.0,
+        seed=0,
+    ),
 }
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "results" / "configs"
@@ -113,4 +147,43 @@ def build_float_sim(name: str, device: torch.device | str):
         batch_per_device=sc["batch"],
         seed=sc["seed"],
         steps_per_dispatch=sc["steps_per_dispatch"],
+    )
+
+
+def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=None):
+    """The BERSimulator of ``DVBS2_SCENARIOS[name]`` on ``device``; a
+    prebuilt DVB-S2 ``layout`` and host ``encoder`` save their few seconds of
+    host work."""
+    from ..construct import DecoderConfig
+    from ..decode import DeviceTrellis
+    from ..encode import LDPCEncoder
+    from ..models import get_model
+    from ..sim import BERSimulator
+
+    sc = DVBS2_SCENARIOS[name]
+    spec = get_model(sc["model"])
+    encoded = sc["chain"] == "encoded"
+    if layout is None or (encoded and encoder is None):
+        H = spec.make_h()
+        layout = spec.make_layout(H) if layout is None else layout
+        encoder = LDPCEncoder(H) if encoded and encoder is None else encoder
+    kw = dict(max_iters=sc.get("max_iters"), llr_source=sc.get("llr_source", "quantized"))
+    if sc["decoder"] == "ib":
+        tables = DecoderConfig.load(str(CONFIG_DIR / f"{sc['config']}.npz")).tables
+        kw.update(
+            trellis=DeviceTrellis.from_tables(tables, device),
+            cardinality_t_channel=tables.cardinality_t_channel,
+        )
+    return BERSimulator(
+        layout,
+        sc["decoder"],
+        device=device,
+        chain=sc["chain"],
+        encoder=encoder if encoded else None,
+        count_all_bits=False,
+        batch_per_device=sc["batch"],
+        seed=sc["seed"],
+        steps_per_dispatch=sc["steps_per_dispatch"],
+        backend=sc["backend"],
+        **kw,
     )

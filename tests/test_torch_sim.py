@@ -212,6 +212,8 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+        kernels = pkg.__name__ + ".kernels."
+        assert {kernels + "ib_lut_hbm", kernels + "float_hbm"} <= set(names)
         print(len(names))
         """
     )
@@ -219,4 +221,4 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 20
+    assert int(proc.stdout.strip()) >= 22
