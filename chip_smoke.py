@@ -51,11 +51,31 @@ K4.
     (designed at 0.6 dB) and 0.9 dB (designed at 0.8 dB), min-sum all-zeros
     at 1.0 dB; BP through run_point and IB through the CLI, briefly;
 15. one DVB-S2 decode at batch 1024, early exit off, by K3 and K4 (both
-    rules) and by the plain whole-batch decoders, timed; outputs equal.
+    rules) and by the plain whole-batch decoders, timed; outputs equal;
+16. the peak microkernels K5 (``csrc/peaks.cu``) and the copy K6
+    (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills;
+17. each K5 variant (1-D lookups, 2-D lookups with the tables shared by a
+    block and copied per lane, each at |T| 16 and 32; the four float ops)
+    against its plain version on the card, equal (``==``), at 16 loops over
+    the thread count the peak measurement launches, and K6 over one 256 MB
+    pass, each timed;
+18. the peaks (lookups/s, float op applications/s, each against its
+    data-sheet rate) and K6's copy bandwidth against ``copy_`` and the data
+    sheet's 3.35 TB/s (above 1.05 x that the byte count is wrong: raise);
+19. the regular (3,6) N=8000 code: K1 (tile 4, i_max 250 cut to 20 for the
+    twin) and K2 (one codeword per CTA) bit-exact against their twins; IB
+    at 1.2 dB and min-sum at 1.7 dB over 8192 blocks inside bands of about
+    3 sigma around ``results/ber/regular_*.json``;
+20. the benchmark matrix's entry point over all 12 cells with its K5 peaks
+    and the copy bandwidth (the faster of K6 and ``copy_``): one line per
+    cell (Mbit/s, mean iterations, backend, decoder launches, bound and
+    fraction of it; every fraction must be at most 1), and K1-K4's bounds at
+    the shapes of phases 5, 10 and 15.
 
 Each phase prints one line per check and its seconds; any failure raises and
-exits non-zero. The last lines are the kernels' JSON record, the card's name
-and power limit, and the device record.
+exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``.
+The last lines are the kernels' JSON record, the card's name and power
+limit, and the device record.
 
 Usage: python3 chip_smoke.py
 """
@@ -77,7 +97,17 @@ import torch
 # channel value, so a 128-codeword tile's syndrome clears only when none of
 # its codewords has that bit wrong, which takes a high SNR.
 DV_EXIT_DB = 9.0
-DV_DISPATCHES = 8  # 8192 blocks per DVB-S2 reference point
+DV_DISPATCHES = 8  # 8192 blocks per DVB-S2 (and regular) reference point
+CHECK_LOOPS = 16  # K5's loop count when held against its plain version
+REG_TWIN_IMAX = 20  # the regular code's twin comparison: i_max 250 cut to 20
+K5_REPLACES = {
+    "lookup1d": "informationbottleneckdecodingldpc_tpu/utils/peaks.py:102",
+    "lookup2d": "informationbottleneckdecodingldpc_tpu/utils/peaks.py:147",
+    "lookup2d_lanes": "informationbottleneckdecodingldpc_tpu/utils/peaks.py:147",
+    "float": "informationbottleneckdecodingldpc_tpu/utils/peaks.py:190",
+}
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def nvidia_smi() -> str:
@@ -190,6 +220,9 @@ def main() -> None:
         float_decode_tiled,
         ib_lut_decode_tiled,
     )
+    from informationbottleneckdecodingldpc_torch.cli import bench_matrix
+    from informationbottleneckdecodingldpc_torch.kernels import hbm_copy
+    from informationbottleneckdecodingldpc_torch.kernels import peaks as k5
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
     from informationbottleneckdecodingldpc_torch.sim import BERSimulator
@@ -203,6 +236,7 @@ def main() -> None:
         build_headline_sim,
         measure_sim_throughput,
     )
+    from informationbottleneckdecodingldpc_torch.utils import peaks, roofline
 
     dev = torch.device("cuda")
 
@@ -210,7 +244,7 @@ def main() -> None:
 
     # -- 2: build (the four kernels' nvcc runs start together) -------------
     t0 = time.perf_counter()
-    libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm")
+    libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm", "peaks", "hbm_copy")
     with ThreadPoolExecutor(len(libraries)) as pool:
         builds = {n: pool.submit(load_library, n) for n in libraries}
         _, build = builds["ib_lut_fused"].result()
@@ -218,6 +252,7 @@ def main() -> None:
         _, k2_build = builds["float_fused"].result()
         k2_loaded = time.perf_counter() - t0
         hbm_builds = {n: builds[n].result()[1] for n in ("ib_lut_hbm", "float_hbm")}
+        roof_builds = {n: builds[n].result()[1] for n in ("peaks", "hbm_copy")}
         all_loaded = time.perf_counter() - t0
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
@@ -325,8 +360,9 @@ def main() -> None:
     max_abs_err = max(max_abs_err, err)
     if err or not torch.equal(got.unsatisfied, ref.unsatisfied):
         raise AssertionError(f"K1 disagrees with its twin at batch 4096 ({err})")
+    k1_iters = float(got.iterations)
     print(f"[5 times] batch 4096 decode: K1 {ms:.3f} ms, plain twin "
-          f"{plain_ms:.1f} ms on {card}", flush=True)
+          f"{plain_ms:.1f} ms on {card}; mean iterations {k1_iters:.3f}", flush=True)
     lap(5)
 
     # -- 6: K2 build ------------------------------------------------------
@@ -476,7 +512,7 @@ def main() -> None:
     }
     for name, b in hbm_builds.items():
         print(f"[11 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1 and K2), all "
-              f"four loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
+              f"six loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
               flush=True)
     lap(11)
 
@@ -652,9 +688,196 @@ def main() -> None:
               f"on {card}; outputs equal", flush=True)
     lap(15)
 
+    # -- 16: K5 and K6 build (started in phase 2) ----------------------------
+    k5_names = {
+        "lookup1d": "lookup1d", "lookup2d_lanes": "lookup2d_lanes", "lookup2d": "lookup2d",
+        "MinSumOp": "minsum_op",
+        "BoxPlus": "boxplus", "AddClip": "float_mix", "3Min": "min", "hbm_copy": "copy",
+    }
+    for name, b in roof_builds.items():
+        print(f"[16 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K4); "
+              f"{ptxas_lines(b['log'], k5_names)}", flush=True)
+    lap(16)
+
+    # -- 17: K5 and K6 against their plain versions ----------------------------
+    primitives = [(kind, t) for kind in k5.LOOKUPS for t in (16, 32)]
+    primitives += [(op, 0) for op in k5.FLOAT_OPS]
+    rows = {}  # kernel record name -> its numbers
+    for kind, t in primitives:
+        threads = k5.threads_to_fill(kind, dev, t or 16)
+        table, init = k5.chain_inputs(kind, threads, t or 16, seed=17)
+        init = torch.as_tensor(init, device=dev)
+        if table is None:
+            run = lambda: k5.float_chain(kind, init, CHECK_LOOPS)
+            plain_run = lambda: k5.float_chain_plain(kind, init, CHECK_LOOPS)
+            ops = roofline.FLOAT_OP_COUNTS[kind]
+        else:
+            table = torch.as_tensor(table, device=dev)
+            run = lambda: k5.lookup_chain(kind, table, init, CHECK_LOOPS)
+            plain_run = lambda: k5.lookup_chain_plain(kind, table, init, CHECK_LOOPS)
+            ops = {"lookup": 1}
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain_run()
+        torch.cuda.synchronize()
+        plain_ms_k = (time.perf_counter() - t0) * 1e3
+        err = float((got.double() - want.double()).abs().max())
+        if not bool((got == want).all()):
+            raise AssertionError(f"K5 {kind} T={t} disagrees with its plain version ({err})")
+        apps = threads * k5.CHAINS * k5.STEPS * CHECK_LOOPS
+        moved = init.numel() * 4 + threads * 4 + (0 if table is None else table.numel())
+        name = f"peaks_{k5.variant(kind, t)}"
+        b = roofline.bound(moved, {k: apps * n for k, n in ops.items()})
+        rows[name] = dict(
+            max_abs_err=err, ms=cuda_ms(run, reps=5), plain_ms=plain_ms_k, library_ms=None,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+        )
+        print(f"[17 exact] K5 {name}: {threads} threads x {k5.CHAINS} chains x "
+              f"{k5.STEPS * CHECK_LOOPS} steps equal to the plain version; kernel "
+              f"{rows[name]['ms']:.3f} ms, plain {plain_ms_k:.1f} ms, bound "
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}) on {card}", flush=True)
+    src = torch.randint(-2**31, 2**31 - 1, (roofline.COPY_BYTES // 4,), dtype=torch.int32, device=dev)
+    dst, ref_dst = torch.empty_like(src), torch.empty_like(src)
+    hbm_copy.copy(src, dst)
+    ref_dst.copy_(src)
+    torch.cuda.synchronize()
+    if not torch.equal(dst, ref_dst):
+        raise AssertionError("K6 disagrees with copy_")
+    rows["hbm_copy"] = dict(
+        max_abs_err=0, plain_ms=cuda_ms(lambda: ref_dst.copy_(src)),
+        ms=cuda_ms(lambda: hbm_copy.copy(src, dst)),
+        library_ms=cuda_ms(lambda: ref_dst.copy_(src)),
+        **{k: v for k, v in roofline.bound(2 * roofline.COPY_BYTES, {}).items()
+           if k in ("bound_ms", "bound_by")},
+    )
+    print(f"[17 exact] K6 one 256 MB pass equal to copy_: kernel {rows['hbm_copy']['ms']:.4f} "
+          f"ms, copy_ {rows['hbm_copy']['plain_ms']:.4f} and {rows['hbm_copy']['library_ms']:.4f} "
+          f"ms, bound {rows['hbm_copy']['bound_ms']:.4f} ms (bytes) on {card}", flush=True)
+    lap(17)
+
+    # -- 18: peaks and bandwidth ---------------------------------------------------
+    for kind, t in primitives:
+        rate = peaks.primitive_peak(kind, t) if t else peaks.primitive_peak(kind)
+        unit = "lookups" if t else "applications"
+        ops = {"lookup": 1} if t else roofline.FLOAT_OP_COUNTS[kind]
+        share = max(rate * n / roofline.DATA_SHEET_OPS_PER_S[k] for k, n in ops.items())
+        print(f"[18 peak] {kind}{f' T={t}' if t else ''}: {rate / 1e9:.2f} G {unit}/s, "
+              f"{share:.1%} of the data sheet's rate on {card}", flush=True)
+    del src, dst, ref_dst
+    bandwidth = roofline.traffic_bandwidth(dev)
+    bw, copy_bw = bandwidth["k6"], bandwidth["copy_"]
+    print(f"[18 bandwidth] K6 {bw / 1e9:.1f} GB/s, copy_ {copy_bw / 1e9:.1f} GB/s, data sheet "
+          f"{roofline.DATA_SHEET_BYTES_PER_S / 1e9:.0f} GB/s ({bw / roofline.DATA_SHEET_BYTES_PER_S:.1%}) "
+          f"on {card}", flush=True)
+    if bw > 1.05 * roofline.DATA_SHEET_BYTES_PER_S:
+        raise AssertionError(f"K6 reads {bw / 1e9:.1f} GB/s, above the data sheet: the byte count is wrong")
+    lap(18)
+
+    # -- 19: the regular (3,6) N=8000 code ----------------------------------------
+    reg_layout = get_model("regular-3-6-8000").make_layout()
+    reg_tables = DecoderConfig.load(str(CONFIG_DIR / "regular_T16_1.05.npz")).tables
+    for early_exit in (True, False):
+        ch = clusters(configs["wlan_T16_0.8"], 1.2, 8, seed=400, lay=reg_layout)
+        dec = FusedIBDecoder(reg_layout, reg_tables, max_iters=REG_TWIN_IMAX, early_exit=early_exit)
+        got = dec(ch)
+        ref = ib_lut_decode_tiled(reg_layout, dec.trellis(dev), ch, dec.batch_tile,
+                                  max_iters=REG_TWIN_IMAX, early_exit=early_exit)
+        torch.cuda.synchronize()
+        if dec.batch_tile != 4 or not same(got, ref):
+            raise AssertionError(f"K1 on regular N=8000 (tile {dec.batch_tile}) disagrees with its twin")
+        print(f"[19 exact] K1 regular N=8000 1.2 dB i_max {REG_TWIN_IMAX} early_exit={early_exit} "
+              f"batch 8 tile {dec.batch_tile}: outputs, unsatisfied and mean iterations "
+              f"{float(got.iterations):.4f} equal", flush=True)
+    for rule in rules:
+        ch = float_llrs(1.7, 4, seed=410, lay=reg_layout)
+        dec = FusedFloatDecoder(reg_layout, rule, max_iters=50)
+        got = dec(ch)
+        ref = float_decode_tiled(reg_layout, ch, rule, dec.batch_tile, 50)
+        torch.cuda.synchronize()
+        if dec.batch_tile != 1 or not same(got, ref):
+            raise AssertionError(f"K2 {rule} on regular N=8000 (tile {dec.batch_tile}) disagrees")
+        print(f"[19 exact] K2 {rule} regular N=8000 1.7 dB batch 4 tile {dec.batch_tile}: outputs, "
+              f"unsatisfied and mean iterations {float(got.iterations):.4f} equal", flush=True)
+    reg_bands = [  # (decoder, Eb/N0, FER, BER, reference file)
+        ("ib", 1.2, 0.626953125, 0.03899, "regular_ib_allzero"),
+        ("minsum", 1.7, 0.6123046875, 0.03901, "regular_minsum"),
+    ]
+    for decoder_name, ebn0, fer_ref, ber_ref, ref_name in reg_bands:
+        kw = dict(max_iters=50)
+        if decoder_name == "ib":
+            kw = dict(trellis=DeviceTrellis.from_tables(reg_tables, dev), cardinality_t_channel=16)
+        sim = BERSimulator(reg_layout, decoder_name, device=dev, count_all_bits=True,
+                           batch_per_device=1024, seed=0, backend="fused", **kw)
+        sim.fused_decoder.launches = 0
+        point = dispatch_point(sim, ebn0, DV_DISPATCHES)
+        if sim.fused_decoder.launches != DV_DISPATCHES:
+            raise AssertionError(f"{sim.fused_decoder.launches} launches for {DV_DISPATCHES} steps")
+        fer_band, ber_band = ref_bands(point, fer_ref, ref_blocks=1024)
+        print(f"[19 band] regular {decoder_name} ({type(sim.fused_decoder).__name__}, tile "
+              f"{sim.fused_decoder.batch_tile}) {ebn0} dB over {point['blocks']} blocks: FER "
+              f"{point['fer']:.5f} ({fer_ref} +- {fer_band:.5f}), BER {point['ber']:.6f} ({ber_ref} "
+              f"+- {ber_band:.6f}, results/ber/{ref_name}.json), mean iterations "
+              f"{point['iterations']:.3f}", flush=True)
+        if abs(point["fer"] - fer_ref) > fer_band or abs(point["ber"] - ber_ref) > ber_band:
+            raise AssertionError(f"regular {decoder_name} FER or BER at {ebn0} dB outside its band")
+    lap(19)
+
+    # -- 20: the benchmark matrix with its roofline ------------------------------------
+    peaks._CACHE.clear()
+    k5.launches.clear()
+    hbm_copy.launches["hbm_copy"] = 0
+    matrix = bench_matrix.main(["--out", str(Path("chiprun_out") / "BENCH_MATRIX.json")])
+    roof_launches = {k5.variant(kind, t): k5.launches[k5.variant(kind, t)] for kind, t in primitives}
+    roof_launches["hbm_copy"] = hbm_copy.launches["hbm_copy"]
+    expected = {
+        ("ib", "fused"): "FusedIBDecoder", ("ib", "hbm"): "HBMFusedIBDecoder",
+        ("minsum", "fused"): "FusedFloatDecoder", ("bp", "fused"): "FusedFloatDecoder",
+        ("minsum", "hbm"): "HBMFloatDecoder", ("ib", "xla"): "WholeBatchDecoder",
+    }
+    roof = matrix["roofline"]
+    for name, sc in matrix["scenarios"].items():
+        entry = roof[name]
+        decodes = sc.get("kernel_launches", sc.get("whole_batch_calls"))
+        print(f"[20 cell] {name}: {sc['coded_mbps']:.2f} Mbit/s coded, mean iterations "
+              f"{sc['mean_iterations']:.2f}, backend {sc['backend']} ({sc['decoder_class']}, "
+              f"{decodes} {'launches' if 'kernel_launches' in sc else 'whole-batch decodes'}), "
+              f"bound {entry['bound']} {entry['speed_of_light_coded_mbps']:.1f} Mbit/s, fraction "
+              f"{entry['fraction_of_sol']:.4f} on {card}", flush=True)
+        if expected.get((sc["decoder"], sc["backend"])) != sc["decoder_class"] or not decodes:
+            raise AssertionError(f"{name} ran {decodes} decodes through {sc['decoder_class']}")
+        if entry["fraction_of_sol"] > 1:
+            raise AssertionError(f"{name} beats its bound: fraction {entry['fraction_of_sol']:.3f}")
+    missing = [k for k, n in roof_launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the matrix launched no {missing}")
+    print(f"[20 peaks] {json.dumps(roof['primitive_peaks_G_per_s'])} G/s; K6 "
+          f"{roof['k6_copy_GBps']:.1f} GB/s, copy_ {roof['torch_copy_GBps']:.1f} GB/s, the bound "
+          f"takes {roof['measured_hbm_bandwidth_GBps']:.1f}; launches {json.dumps(roof_launches)}",
+          flush=True)
+    matrix_bw = roof["measured_hbm_bandwidth_GBps"] * 1e9
+    decode_shapes = {  # record name -> (layout, decoder, batch, bodies, tables)
+        "ib_lut_fused": (layout, "ib", 4096, k1_iters, configs["wlan_T16_0.8"].tables),
+        "float_fused_minsum": (layout, "minsum", 4096, 49.0, None),
+        "float_fused_bp": (layout, "bp", 4096, 49.0, None),
+        "ib_lut_hbm": (dv_layout, "ib", 1024, 49.0, configs["dvbs2_T16_0.6"].tables),
+        "float_hbm_minsum": (dv_layout, "minsum", 1024, 49.0, None),
+        "float_hbm_bp": (dv_layout, "bp", 1024, 49.0, None),
+    }
+    for name, (lay, decoder_name, batch, bodies, tables) in decode_shapes.items():
+        b = roofline.decode_bound(lay, decoder_name, batch, bodies, tables)
+        rows[name] = dict(library_ms=None, **{k: b[k] for k in ("bound_ms", "bound_by")})
+        line = (f"[20 bound] {name} at batch {batch}, {bodies:.2f} bodies: I/O {b['io_ms']:.4f} ms, "
+                f"compute {b['compute_ms']:.4f} ms")
+        if "hbm" in name:
+            traffic = roofline.view_bytes_per_body(lay, decoder_name) * bodies * batch / matrix_bw
+            line += f", view traffic {traffic * 1e3:.3f} ms at the copy bandwidth"
+        print(line + f" on {card}", flush=True)
+    lap(20)
+
     k2_source = "informationbottleneckdecodingldpc_torch/csrc/float_fused.cu"
     k2_replaces = "informationbottleneckdecodingldpc_tpu/kernels/float_fused.py:143"
-    print(json.dumps({"kernels": [{
+    records = [{
         "name": "ib_lut_fused",
         "route": "cuda",
         "source": "informationbottleneckdecodingldpc_torch/csrc/ib_lut_fused.cu",
@@ -690,7 +913,30 @@ def main() -> None:
         "max_abs_err": k4_err[rule],
         "ms": hbm_ms[rule],
         "plain_ms": hbm_plain_ms[rule],
-    } for rule in rules]}))
+    } for rule in rules]
+    for kind, t in primitives:
+        name = f"peaks_{k5.variant(kind, t)}"
+        records.append({
+            "name": name,
+            "route": "cuda",
+            "source": "informationbottleneckdecodingldpc_torch/csrc/peaks.cu",
+            "replaces": K5_REPLACES.get(kind, K5_REPLACES["float"]),
+            "launches": roof_launches[k5.variant(kind, t)],
+            **rows[name],
+        })
+    records.append({
+        "name": "hbm_copy",
+        "route": "cuda",
+        "source": "informationbottleneckdecodingldpc_torch/csrc/hbm_copy.cu",
+        "replaces": "scripts/bench_matrix.py:126",
+        "launches": roof_launches["hbm_copy"],
+        **rows["hbm_copy"],
+    })
+    for r in records:
+        r.update({k: v for k, v in rows.get(r["name"], {}).items() if k not in r})
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in KERNEL_KEYS} for r in records
+    ]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

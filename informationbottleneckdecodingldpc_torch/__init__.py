@@ -2,11 +2,13 @@
 
 A second package beside ``informationbottleneckdecodingldpc_tpu`` (the JAX
 reference, which it is tested against bit for bit). It imports ``torch``,
-``numpy`` and ``scipy`` and never ``jax``; from the JAX package it reuses only
-the numpy host code of ``codes`` (Tanner graphs, code constructors), ``ib``
-(the channel quantizer's IB clustering), ``models.zoo`` (named codes) and
-``encode`` (the host GF(2) encoder).
+``numpy`` and ``scipy`` and nothing of ``jax`` or of the JAX package: the
+numpy host code it needs (``codes``, the ``ib`` quantizer, the host encoder,
+the model zoo) is its own copy.
 
+- ``codes``      check matrices (WLAN 802.11n, DVB-S2, regular and QC
+                 constructions, alist/mat I/O) and Tanner graphs.
+- ``ib``         the exact symmetric IB quantizer of the channel output.
 - ``channel``    AWGN noise scale, BPSK mapping, the channel-output
                  quantizer tables, threshold quantization and inversion
                  sampling of channel clusters and their LLRs.
@@ -14,20 +16,22 @@ the numpy host code of ``codes`` (Tanner graphs, code constructors), ``ib``
                  configs (construction itself stays in the JAX package).
 - ``decode``     degree-grouped decode layout, the plain whole-batch IB
                  lookup-table, min-sum and BP decoders and their loop.
-- ``encode``     the device GF(2) encoder of the encoded chain, on the JAX
-                 package's numpy host encoder.
+- ``encode``     the host GF(2) encoder (numpy) and its device path.
 - ``ops``        leave-one-out trellis folds with direct ``lut[a, b]``
                  lookups; min-sum, box-plus and variable-node float folds.
 - ``kernels``    hand-written Hopper kernels (CUDA C++ under ``csrc/``) with
                  their plain PyTorch twins, built lazily at first CUDA use:
                  the IB and float decoders with views in shared memory
                  (``FusedIBDecoder``, ``FusedFloatDecoder``) or in device
-                 memory (``HBMFusedIBDecoder``, ``HBMFloatDecoder``).
+                 memory (``HBMFusedIBDecoder``, ``HBMFloatDecoder``), and the
+                 roofline's peak microkernels (``peaks``) and copy
+                 (``hbm_copy``).
 - ``sim``        Monte-Carlo BER engine for the all-zeros and encoded BPSK
-                 chains.
+                 chains, on the kernels or the whole-batch decoders.
 - ``models``     named codes with the port's decode layout.
-- ``utils``      the headline, float-decoder and DVB-S2 throughput scenarios.
-- ``cli``        a reduced BER sweep command line.
+- ``utils``      the headline, float-decoder, DVB-S2 and matrix scenarios,
+                 the primitive peaks and the roofline.
+- ``cli``        a reduced BER sweep command line and the benchmark matrix.
 """
 
 __version__ = "0.1.0"

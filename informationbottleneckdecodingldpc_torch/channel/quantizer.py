@@ -1,10 +1,9 @@
 """Information-optimum AWGN channel-output quantizer for BPSK.
 
 Port of ``channel/quantizer.py``: the tables are built once on the host in
-numpy (fine grid + exact DP symmetric IB, reused from the JAX package's
-numpy-only ``ib`` module); the per-sample operations are plain PyTorch on
-float32 tables, so that cluster boundaries agree exactly with the JAX side,
-which also compares in float32.
+numpy (fine grid + exact DP symmetric IB, the port's ``ib`` module); the
+per-sample operations are plain PyTorch on float32 tables, so that cluster
+boundaries agree exactly with the JAX side, which also compares in float32.
 
 Conventions (contracts with the decoders): bit 0 maps to +1; cluster labels
 ascend with y; ``limits[T/2] = 0``; inversion sampling draws t ~ p(t|x=0)
@@ -20,7 +19,7 @@ import numpy as np
 import torch
 from scipy.stats import norm
 
-from informationbottleneckdecodingldpc_tpu.ib import optimal_symmetric_quantizer
+from ..ib import optimal_symmetric_quantizer
 
 
 @dataclasses.dataclass(frozen=True)

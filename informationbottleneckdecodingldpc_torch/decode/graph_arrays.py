@@ -21,7 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from informationbottleneckdecodingldpc_tpu.codes.graph import TannerGraph
+from ..codes.graph import TannerGraph
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels with their plain PyTorch twins: the IB and
 float decoders with the message views in shared memory (K1, K2: codes whose
 codeword fits one CTA) and in device memory (K3, K4: any code, DVB-S2 N=64800
-among them).
+among them); the roofline's primitive peak chains (K5, ``peaks``) and
+device-memory copy (K6, ``hbm_copy``).
 
 Importing this package builds nothing: a kernel is compiled and loaded at its
 first launch on a CUDA tensor (``_build.load_library``).

@@ -85,31 +85,50 @@ def load_library(name: str) -> tuple[ctypes.CDLL, dict]:
     return lib, {"seconds": seconds, "path": str(lib_path), "log": log}
 
 
-class KernelLibrary:
-    """The C interface of a kernel library of ``csrc/``: ``<name>_decode``
+class CLibrary:
+    """A library of ``csrc/`` with a plain C interface: ``functions`` maps
+    each C function to its argument types (each returns an int, a
+    cudaError_t for a launcher), and ``<name>_error_string`` turns an error
+    into CUDA's message."""
+
+    def __init__(self, name: str, functions: dict[str, list]):
+        lib, self.build = load_library(name)
+        self.name = name
+        self._functions = {}
+        for fn_name, argtypes in functions.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            self._functions[fn_name] = fn
+        self._error_string = getattr(lib, f"{name}_error_string")
+        self._error_string.argtypes = [ctypes.c_int]
+        self._error_string.restype = ctypes.c_char_p
+
+    def value(self, fn_name: str, *args) -> int:
+        """The int a C function returns."""
+        return self._functions[fn_name](*args)
+
+    def launch(self, fn_name: str, *args) -> None:
+        """Call a launcher; raises with CUDA's message if it was refused."""
+        err = self._functions[fn_name](*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{fn_name} launch failed: " + self._error_string(err).decode()
+            )
+
+
+class KernelLibrary(CLibrary):
+    """The C interface of a decoder library of ``csrc/``: ``<name>_decode``
     returning a cudaError_t, ``<name>_error_string`` and
     ``<name>_max_degree``, which must equal the wrapper's ``max_degree``."""
 
     def __init__(self, name: str, decode_argtypes: list, max_degree: int):
-        lib, _ = load_library(name)
-        i = ctypes.c_int
-        self.name = name
-        self._decode = getattr(lib, f"{name}_decode")
-        self._decode.argtypes = decode_argtypes
-        self._decode.restype = i
-        self._error_string = getattr(lib, f"{name}_error_string")
-        self._error_string.argtypes = [i]
-        self._error_string.restype = ctypes.c_char_p
-        degree = getattr(lib, f"{name}_max_degree")
-        degree.argtypes = []
-        degree.restype = i
-        if degree() != max_degree:
+        super().__init__(
+            name, {f"{name}_decode": decode_argtypes, f"{name}_max_degree": []}
+        )
+        if self.value(f"{name}_max_degree") != max_degree:
             raise RuntimeError(f"csrc/{name}.cu and the wrapper's MAX_DEGREE disagree")
 
     def decode(self, *args) -> None:
         """Launch the decode; raises with CUDA's message if it was refused."""
-        err = self._decode(*args)
-        if err != 0:
-            raise RuntimeError(
-                f"{self.name} launch failed: " + self._error_string(err).decode()
-            )
+        self.launch(f"{self.name}_decode", *args)

@@ -3,7 +3,8 @@
 Port of ``sim/engine.py`` for ``decoder`` in ``ib | minsum | bp``, ``chain``
 in ``allzero | encoded``, ``llr_source`` in ``quantized | true``, BPSK, one
 device. Each step draws its random planes, builds the channel input, decodes
-(the kernels on a CUDA device, their plain twins on the CPU) and counts bit
+(the kernels on a CUDA device and their plain twins on the CPU, or with
+``backend='xla'`` the plain whole-batch decoders on either) and counts bit
 and frame errors over the counted prefix. The host loop accumulates the
 counters until ``min_errors`` bit errors or ``max_blocks`` blocks.
 
@@ -45,8 +46,11 @@ from ..channel.quantizer import (
     sample_llrs_from_uniform,
 )
 from ..construct.trellis import TrellisTables
+from ..decode.bp import belief_propagation_decode
+from ..decode.common import DecodeResult
 from ..decode.graph_arrays import DecodeLayout
-from ..decode.ib_lut import DeviceTrellis
+from ..decode.ib_lut import DeviceTrellis, ib_lut_decode
+from ..decode.min_sum import min_sum_decode
 from ..encode.encoder import device_encoder
 from ..kernels import float_fused, ib_lut_fused
 from ..kernels.float_hbm import HBMFloatDecoder
@@ -106,6 +110,40 @@ def fused_fits(layout: DecodeLayout, tables: TrellisTables | None) -> bool:
     return need <= ib_lut_fused.MAX_SHARED_BYTES
 
 
+class WholeBatchDecoder:
+    """``backend='xla'``: the plain whole-batch decoder (``ib_lut_decode``,
+    ``min_sum_decode`` or ``belief_propagation_decode``) on the simulator's
+    device, the counterpart of the JAX engine's XLA path. The whole batch
+    runs in lockstep and exits early together, when no codeword has an
+    unsatisfied check. ``calls`` counts decodes (it launches no kernel of
+    its own)."""
+
+    def __init__(
+        self,
+        layout: DecodeLayout,
+        decoder: str,
+        max_iters: int,
+        early_exit: bool,
+        trellis: DeviceTrellis | None = None,
+    ):
+        self.layout = layout
+        self.decoder = decoder
+        self.max_iters = max_iters
+        self.early_exit = early_exit
+        self.trellis = trellis
+        self.calls = 0
+
+    def __call__(self, channel_input: torch.Tensor) -> DecodeResult:
+        self.calls += 1
+        if self.decoder == "ib":
+            return ib_lut_decode(
+                self.layout, self.trellis, channel_input,
+                max_iters=self.max_iters, early_exit=self.early_exit,
+            )
+        fn = min_sum_decode if self.decoder == "minsum" else belief_propagation_decode
+        return fn(self.layout, channel_input, self.max_iters, early_exit=self.early_exit)
+
+
 def received_plane(bits: torch.Tensor, noise: torch.Tensor, sigma2: float) -> torch.Tensor:
     """y = bpsk(bits) + sqrt(sigma^2) n in float32: a multiply, then an add
     (XLA on the CPU fuses them into one FMA, so the JAX value may differ in
@@ -122,13 +160,20 @@ class BERSimulator:
     raises if one codeword does not fit a CTA), 'hbm' the device-memory
     kernels (K3 :class:`HBMFusedIBDecoder`, K4 :class:`HBMFloatDecoder`),
     'auto' 'fused' when the layout fits and 'hbm' otherwise (DVB-S2
-    N=64800); 'xla' is not ported. Each is the CUDA kernel on a CUDA device
-    and its plain twin on the CPU. Every one of them exits early per tile of
-    ``batch_tile`` codewords (default: the kernel's), not over the whole
-    batch, so the mean iteration count depends on the tile while the BER
-    does not; ``batch_tile=batch_per_device`` gives whole-batch lockstep.
-    The encoded chain needs the host ``encoder`` (the JAX package's numpy
-    ``LDPCEncoder``), whose matrices go to the device once.
+    N=64800). Each kernel backend is the CUDA kernel on a CUDA device and its
+    plain twin on the CPU, and exits early per tile of ``batch_tile``
+    codewords (default: the kernel's), not over the whole batch, so the mean
+    iteration count depends on the tile while the BER does not;
+    ``batch_tile=batch_per_device`` gives whole-batch lockstep.
+
+    'xla' is the whole-batch path the JAX package also offers, chosen only
+    by name ('auto' never picks it) and not a fallback: the plain decoders
+    (:class:`WholeBatchDecoder`) on the simulator's device, the whole batch
+    in lockstep with one early exit, as the JAX engine's XLA decoders run;
+    it takes no ``batch_tile``.
+
+    The encoded chain needs the host ``encoder`` (``encode.LDPCEncoder``),
+    whose matrices go to the device once.
     """
 
     def __init__(
@@ -169,12 +214,7 @@ class BERSimulator:
             raise ValueError(f"unknown chain {chain!r}")
         if llr_source not in ("quantized", "true"):
             raise ValueError(f"unknown llr_source {llr_source!r}")
-        if backend == "xla":
-            raise NotImplementedError(
-                "backend='xla' (the plain whole-batch decoders as a path) is not "
-                "ported yet (ROADMAP item 12)"
-            )
-        if backend not in ("auto", "fused", "hbm"):
+        if backend not in ("auto", "fused", "hbm", "xla"):
             raise ValueError(f"unknown backend {backend!r}")
         self.device = resolve_device(device)
         self.layout = layout
@@ -210,6 +250,16 @@ class BERSimulator:
                 raise ValueError("the encoded chain requires an LDPCEncoder")
             self._info_len = encoder.k
             self._encode = device_encoder(encoder, self.device)
+        self._quant_cache: dict[float, DeviceQuantizerTables] = {}
+        self._generator = torch.Generator(device=self.device)
+        if backend == "xla":
+            if batch_tile is not None:
+                raise ValueError("backend='xla' decodes the whole batch; it takes no batch_tile")
+            self.backend = backend
+            self.fused_decoder = WholeBatchDecoder(
+                layout, decoder, self.max_iters, self.early_exit, trellis
+            )
+            return
         fits = fused_fits(layout, trellis.host if decoder == "ib" else None)
         if backend == "fused" and not fits:
             raise ValueError(
@@ -237,8 +287,6 @@ class BERSimulator:
                 early_exit=self.early_exit,
                 batch_tile=batch_tile,
             )
-        self._quant_cache: dict[float, DeviceQuantizerTables] = {}
-        self._generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------------
     def _count_errors(

@@ -1,21 +1,31 @@
-"""The headline, float and DVB-S2 scenarios and throughput measurement."""
+"""The headline, float and DVB-S2 scenarios, the benchmark matrix, its
+roofline and peak rates, and throughput measurement."""
 
 from .benchmarks import (
     DVBS2_SCENARIOS,
     FLOAT_SCENARIOS,
     HEADLINE,
+    MATRIX,
     build_dvbs2_sim,
     build_float_sim,
     build_headline_sim,
+    build_matrix_sim,
+    measure_sim,
     measure_sim_throughput,
 )
+from .bitpack import pack_bits, unpack_bits
 
 __all__ = [
     "DVBS2_SCENARIOS",
     "FLOAT_SCENARIOS",
     "HEADLINE",
+    "MATRIX",
     "build_dvbs2_sim",
     "build_float_sim",
     "build_headline_sim",
+    "build_matrix_sim",
+    "measure_sim",
     "measure_sim_throughput",
+    "pack_bits",
+    "unpack_bits",
 ]

@@ -27,6 +27,7 @@ from informationbottleneckdecodingldpc_tpu.channel.modulation import (
 from informationbottleneckdecodingldpc_tpu.codes.dvbs2 import dvbs2_like_parity_check
 from informationbottleneckdecodingldpc_tpu.construct import DecoderConfig as JaxConfig
 from informationbottleneckdecodingldpc_tpu.decode import DeviceTrellis as JaxTrellis
+from informationbottleneckdecodingldpc_tpu.encode import LDPCEncoder as JaxEncoder
 from informationbottleneckdecodingldpc_tpu.models import get_model as jax_model
 from informationbottleneckdecodingldpc_tpu.sim import BERSimulator as JaxSimulator
 from informationbottleneckdecodingldpc_tpu.sim.engine import PointResult as JaxPoint
@@ -63,7 +64,7 @@ def test_device_encoder_matches_host_encoder(code, wlan):
     assert got.dtype == torch.int8 and tuple(got.shape) == (enc.n, 24)
     assert np.array_equal(got.numpy(), enc.encode(info))
     assert not enc.check(got.numpy()).any()  # every codeword is valid
-    jax_cw = enc.device_encoder()(jnp.asarray(info))
+    jax_cw = JaxEncoder(enc.H).device_encoder()(jnp.asarray(info))
     assert np.array_equal(got.numpy(), np.asarray(jax_cw))
 
 
@@ -100,7 +101,7 @@ def _sims(wlan, decoder, llr_source="quantized", batch=8):
         kw["trellis"] = DeviceTrellis.from_tables(DecoderConfig.load(CONFIG).tables, "cpu")
         jkw["trellis"] = JaxTrellis.from_tables(JaxConfig.load(CONFIG).tables)
     port = BERSimulator(layout, decoder, device="cpu", batch_tile=batch, **kw)
-    kw.update(jkw)
+    kw.update(jkw, encoder=JaxEncoder(H))
     jax_sim = JaxSimulator(
         jax_model("wlan-1296").make_layout(H), decoder, n_devices=1, backend="xla", **kw
     )

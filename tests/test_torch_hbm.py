@@ -40,6 +40,7 @@ from informationbottleneckdecodingldpc_tpu.kernels import (
 from informationbottleneckdecodingldpc_tpu.kernels.float_hbm import (
     HBMFloatDecoder as JaxHBMFloatDecoder,
 )
+from informationbottleneckdecodingldpc_tpu.encode import LDPCEncoder as JaxEncoder
 from informationbottleneckdecodingldpc_tpu.models import get_model as jax_model
 from informationbottleneckdecodingldpc_tpu.sim import BERSimulator as JaxSimulator
 from informationbottleneckdecodingldpc_torch.construct import (
@@ -62,7 +63,7 @@ from informationbottleneckdecodingldpc_torch.kernels.ib_lut_hbm import (
 )
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
-from informationbottleneckdecodingldpc_torch.sim.engine import fused_fits
+from informationbottleneckdecodingldpc_torch.sim.engine import WholeBatchDecoder, fused_fits
 
 BP_RTOL = 1e-5  # as in tests/test_torch_float.py
 CONFIGS = "results/configs"
@@ -340,8 +341,11 @@ def test_fused_backend_refuses_dvbs2_and_xla_is_not_ported(dvbs2):
     trellis = DeviceTrellis.from_tables(tables, "cpu")
     with pytest.raises(ValueError, match="shared memory"):
         BERSimulator(layout, "ib", device="cpu", trellis=trellis, backend="fused")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        BERSimulator(layout, "ib", device="cpu", trellis=trellis, backend="xla")
+    # 'xla' is the whole-batch path, chosen only by name.
+    sim = BERSimulator(layout, "ib", device="cpu", trellis=trellis, backend="xla")
+    assert sim.backend == "xla" and isinstance(sim.fused_decoder, WholeBatchDecoder)
+    with pytest.raises(ValueError, match="batch_tile"):
+        BERSimulator(layout, "ib", device="cpu", trellis=trellis, backend="xla", batch_tile=128)
     with pytest.raises(ValueError, match="backend"):
         BERSimulator(layout, "bp", device="cpu", max_iters=5, backend="tpu")
 
@@ -367,6 +371,7 @@ def test_encoded_hbm_step_matches_jax_chain(ira, decoder):
         ira["layout"], decoder, device="cpu", backend="hbm", batch_tile=batch, **kw
     )
     assert isinstance(port.fused_decoder, (HBMFusedIBDecoder, HBMFloatDecoder))
+    jkw["encoder"] = JaxEncoder(ira["H"])
     jsim = JaxSimulator(ira["jlayout"], decoder, n_devices=1, backend="xla", **jkw)
 
     rng = np.random.default_rng(5)
