@@ -4,10 +4,11 @@ Drives the port's main paths through the CUDA kernels and checks them: the
 headline BER simulation (WLAN 802.11n N=1296, IB decoder |T|=16 with message
 alignment, i_max=50, all-zeros chain, batch 4096 x 8 steps) through K1; the
 float decoders' cells (min-sum and BP on 16-level quantized LLRs, 2.0 dB,
-i_max 50, the same batch) and the encoded chain through K2; and the DVB-S2
+i_max 50, the same batch) and the encoded chain through K2; the DVB-S2
 R=1/2 N=64800 cells (IB |T|=16 on the encoded chain, min-sum on quantized
 LLRs, 1.0 dB, i_max 50, batch 1024) through the device-memory kernels K3 and
-K4.
+K4; the benchmark matrix through K5 and K6; and the probes P1-P4 through
+their entry point.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it);
@@ -70,10 +71,30 @@ K4.
     and the copy bandwidth (the faster of K6 and ``copy_``): one line per
     cell (Mbit/s, mean iterations, backend, decoder launches, bound and
     fraction of it; every fraction must be at most 1), and K1-K4's bounds at
-    the shapes of phases 5, 10 and 15.
+    the shapes of phases 5, 10 and 15;
+21. the probes P1 (``csrc/lut_columns.cu``), P2/P3 (``csrc/bulk_read.cu``)
+    and P4 (``csrc/bulk_copies.cu``), built beside K1-K6: registers, shared
+    memory and spills of each kernel;
+22. P1, CUDA cores and tensor cores at |T1| 16 and 32, equal (``==``) to the
+    plain chain at 16 loops over the elements the rate measurement launches,
+    each timed; then the probe entry point's P1 (its rates against their
+    data-sheet bounds), every variant launched;
+23. P2/P3, every read variant and chunk size (seq, 7 strided streams at 4,
+    16 and 48 KB; the table and nested variants at 4 and 16 KB) over the 256
+    MB source on one block per SM: per-block checksums of one pass equal to
+    the plain version, each timed (``x.sum()`` beside seq); then the entry
+    point's P2/P3, each rate against 3.35 TB/s and ``copy_`` of phase 18
+    (above 1.05 x 3.35 TB/s the byte count is wrong: raise);
+24. P4, scatter and stage at 512 B, 16 KB and 128 KB on one block, at 512 B
+    and 16 KB on one block per SM, and at 16 KB with 8 and 2 copies per
+    wait: after two waves the scatter's destination and the stage's
+    checksums equal to the plain versions, one wave timed (``index_copy_``
+    beside the scatter); then the entry point's P4: microseconds per copy and
+    per wait and effective GB/s, with the same raise.
 
 Each phase prints one line per check and its seconds; any failure raises and
-exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``.
+exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
+the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4}.json``.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the device record.
 
@@ -108,6 +129,17 @@ K5_REPLACES = {
 }
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
+PROBE_LIBRARIES = ("lut_columns", "bulk_read", "bulk_copies")
+PROBE_REPLACES = {  # a probe variant -> the TPU probe it replaces (the repo's scripts/)
+    "cuda_cores": "scripts/mxu_col_probe.py:63",
+    "tensor_cores": "scripts/mxu_col_probe.py:102",
+    "seq": "scripts/read_bw_probe.py:30",
+    "strided": "scripts/read_bw_probe.py:30",
+    "table": "scripts/read_bw_probe2.py:31",
+    "nested": "scripts/read_bw_probe2.py:31",
+    "copies": "scripts/dma_probe.py:36",
+    "copies_per_wait": "scripts/dma_probe.py:120",
+}
 
 
 def nvidia_smi() -> str:
@@ -188,6 +220,163 @@ def ref_bands(point: dict, fer_ref: float, ref_blocks: int = 128) -> tuple[float
     return 3 * math.sqrt(p * (1 - p) * both), 3 * per_codeword_sd * math.sqrt(both)
 
 
+def drive_probe(probe: str, counts) -> tuple[dict, dict]:
+    """The probe entry point for ``probe`` ('p1', 'p2,p3', 'p4') with the
+    launch counts set to 0 just before it: the counts it left and its
+    result."""
+    from informationbottleneckdecodingldpc_torch.cli import probes as cli_probes
+
+    counts.clear()
+    out = Path("chiprun_out") / f"PROBES_{probe.replace(',', '_')}.json"
+    result = cli_probes.main(["--only", probe, "--out", str(out)])
+    return dict(counts), result
+
+
+def timed_plain(fn):
+    """``fn()`` and the milliseconds of a second call after a warm-up one, by
+    the host clock around a synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict]:
+    """Phases 21-24: the probes P1-P4 built, held against their plain
+    versions, timed, and run through their entry point. Returns their
+    kernel records."""
+    from informationbottleneckdecodingldpc_torch.kernels import bulk_copies as p4
+    from informationbottleneckdecodingldpc_torch.kernels import bulk_read as p23
+    from informationbottleneckdecodingldpc_torch.kernels import lut_columns as p1
+    from informationbottleneckdecodingldpc_torch.utils import probes, roofline
+
+    # -- 21: the probes' builds (started in phase 2) ------------------------------
+    names = {f"{v}_kernelILi{t}E": f"{v} T{t}" for v in ("cuda_cores", "tensor_cores") for t in (16, 32)}
+    names.update({"ring_kernelILi0E": "seq", "ring_kernelILi1E": "strided", "ring_kernelILi2E": "table",
+                  "nested": "nested", "scatter": "scatter", "stage": "stage"})
+    for name, b in builds.items():
+        print(f"[21 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K6); "
+              f"{ptxas_lines(b['log'], names)}", flush=True)
+    lap(21)
+    records = []
+
+    def record(name: str, kind: str, source: str, launches: int, **numbers) -> None:
+        if not launches:
+            raise AssertionError(f"the probe entry point launched no {name}")
+        records.append({"name": name, "route": "cuda",
+                        "source": f"informationbottleneckdecodingldpc_torch/csrc/{source}",
+                        "replaces": PROBE_REPLACES[kind],
+                        "launches": launches, **numbers})
+
+    # -- 22: P1, column builds on CUDA cores and tensor cores --------------------------
+    p1_rows = {}
+    for t1 in p1.CONFIGS:
+        w = p1.CONFIGS[t1][1]
+        for variant in p1.VARIANTS:
+            elements = p1.elements_to_fill(variant, t1, dev)
+            packed, b0 = (torch.as_tensor(a, device=dev) for a in p1.probe_inputs(t1, elements, seed=17))
+            run = lambda: p1.columns_chain(variant, packed, b0, CHECK_LOOPS)
+            got = run()
+            want, plain_ms_k = timed_plain(lambda: p1.columns_chain_plain(packed, b0, CHECK_LOOPS))
+            err = int((got.long() - want.long()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"P1 {variant} T1={t1} disagrees with its plain version ({err})")
+            steps = elements * CHECK_LOOPS
+            ops = ({"lookup": steps * w} if variant == "cuda_cores"
+                   else {"tensor_f16": steps * p1.mma_flops_per_step(t1)})
+            b = roofline.bound(2 * 4 * elements + packed.numel() * 4, ops)
+            name = p1.variant_name(variant, t1)
+            p1_rows[name] = dict(kind=variant, max_abs_err=err, ms=cuda_ms(run, reps=5),
+                                 plain_ms=plain_ms_k, library_ms=None, bound_ms=b["bound_ms"],
+                                 bound_by=b["bound_by"])
+            print(f"[22 exact] P1 {name}: {elements} elements x {CHECK_LOOPS} steps equal to the "
+                  f"plain version; kernel {p1_rows[name]['ms']:.4f} ms, plain {plain_ms_k:.1f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) on {card}", flush=True)
+    counts, _ = drive_probe("p1", p1.launches)
+    for name, numbers in p1_rows.items():
+        record(f"lut_columns_{name}", numbers.pop("kind"), "lut_columns.cu", counts.get(name, 0),
+               **numbers)
+    print(f"[22 launches] {json.dumps(counts)}", flush=True)
+    lap(22)
+
+    # -- 23: P2/P3, reads staged by bulk copies ------------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = probes.read_source(dev, seed=23)
+    read_rows = {}
+    for variant, kb in dict.fromkeys(v for p in ("p2", "p3") for v in p23.PROBES[p]):
+        probe = p23.BulkRead(variant, kb * 1024 // p23.ROW_BYTES)
+        got = probe(src)
+        want, plain_ms_k = timed_plain(lambda: probe.plain(src, sms))
+        if not torch.equal(got, want):
+            raise AssertionError(f"P2/P3 {probe.name} checksums disagree with the plain version")
+        b = roofline.bound(probe.bytes_per_pass + 4 * sms, {})
+        read_rows[probe.name] = dict(
+            kind=variant, max_abs_err=0, ms=cuda_ms(lambda: probe(src), reps=5), plain_ms=plain_ms_k,
+            library_ms=cuda_ms(lambda: src.sum(), reps=5) if variant == "seq" else None,
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+        )
+        print(f"[23 exact] {probe.name}: {probe.units} copies of {kb} KB on {sms} blocks, checksums "
+              f"equal to the plain version; kernel {read_rows[probe.name]['ms']:.4f} ms, plain "
+              f"{plain_ms_k:.1f} ms, bound {b['bound_ms']:.4f} ms on {card}", flush=True)
+    del src, got, want
+    torch.cuda.empty_cache()
+    counts, result = drive_probe("p2,p3", p23.launches)
+    for r in result["reads"]["variants"]:
+        print(f"[23 rate] {r['name']}: {r['bytes_per_s'] / 1e9:.1f} GB/s read, "
+              f"{r['bytes_per_s'] / roofline.DATA_SHEET_BYTES_PER_S:.1%} of 3.35 TB/s, "
+              f"{r['bytes_per_s'] / copy_bw:.1%} of copy_'s {copy_bw / 1e9:.1f} GB/s on {card}", flush=True)
+    for name, numbers in read_rows.items():
+        record(f"bulk_read_{name}", numbers.pop("kind"), "bulk_read.cu", counts.get(name, 0), **numbers)
+    lap(23)
+
+    # -- 24: P4, bulk copies and waits ----------------------------------------------------
+    copy_rows = {}
+    for v in probes.copy_variants(sms):
+        operands = probes.copy_operands(v, dev, seed=24)
+        moved = v.blocks * v.wave * v.copy_bytes
+        if v.direction == "scatter":
+            image, target = operands
+            want = torch.zeros_like(target)
+            v.scatter(image, target, waves=2)
+            _, plain_ms_k = timed_plain(lambda: p4.scatter_plain(image, want, v.dst, v.smem, v.copy_rows))
+            same = torch.equal(target, want)
+            to, frm = (torch.as_tensor(a, device=dev) for a in p4.scatter_rows(v.dst, v.smem, v.copy_rows))
+            picked = image.index_select(0, frm)
+            library_ms = cuda_ms(lambda: want.index_copy_(0, to, picked), reps=5)
+            ms = cuda_ms(lambda: v.scatter(image, target, waves=1), reps=5)
+            moved += image.numel() * 4
+        else:
+            (source,) = operands
+            got = v.stage(source, waves=2)
+            want, plain_ms_k = timed_plain(lambda: p4.stage_plain(source, v.dst, v.smem, v.copy_rows))
+            same = torch.equal(got, want)
+            library_ms = None
+            ms = cuda_ms(lambda: v.stage(source, waves=1), reps=5)
+            moved += 4 * v.blocks
+        if not same:
+            raise AssertionError(f"P4 {v.name} disagrees with its plain version")
+        b = roofline.bound(moved, {})
+        copy_rows[v.name] = dict(kind="copies" if v.entries >= v.wave else "copies_per_wait",
+                                 max_abs_err=0, ms=ms, plain_ms=plain_ms_k, library_ms=library_ms,
+                                 bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        print(f"[24 exact] {v.name}: {v.blocks} x {v.wave} copies of {v.copy_bytes} B, "
+              f"{v.group} per wait, {'destination' if v.direction == 'scatter' else 'checksums'} "
+              f"equal to the plain version; one wave {ms:.4f} ms, plain {plain_ms_k:.1f} ms"
+              + (f", index_copy_ {library_ms:.4f} ms" if library_ms else "")
+              + f", bound {b['bound_ms']:.4f} ms on {card}", flush=True)
+        del operands, want
+        torch.cuda.empty_cache()
+    counts, _ = drive_probe("p4", p4.launches)
+    for name, numbers in copy_rows.items():
+        record(f"bulk_copies_{name}", numbers.pop("kind"), "bulk_copies.cu", counts.get(name, 0),
+               **numbers)
+    print(f"[24 launches] {json.dumps(counts)}", flush=True)
+    lap(24)
+    return records
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -242,9 +431,10 @@ def main() -> None:
 
     lap(1)
 
-    # -- 2: build (the four kernels' nvcc runs start together) -------------
+    # -- 2: build (every library's nvcc run starts at once) -----------------
     t0 = time.perf_counter()
-    libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm", "peaks", "hbm_copy")
+    libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm", "peaks", "hbm_copy",
+                 *PROBE_LIBRARIES)
     with ThreadPoolExecutor(len(libraries)) as pool:
         builds = {n: pool.submit(load_library, n) for n in libraries}
         _, build = builds["ib_lut_fused"].result()
@@ -253,6 +443,7 @@ def main() -> None:
         k2_loaded = time.perf_counter() - t0
         hbm_builds = {n: builds[n].result()[1] for n in ("ib_lut_hbm", "float_hbm")}
         roof_builds = {n: builds[n].result()[1] for n in ("peaks", "hbm_copy")}
+        probe_builds = {n: builds[n].result()[1] for n in PROBE_LIBRARIES}
         all_loaded = time.perf_counter() - t0
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
@@ -512,7 +703,7 @@ def main() -> None:
     }
     for name, b in hbm_builds.items():
         print(f"[11 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1 and K2), all "
-              f"six loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
+              f"{len(libraries)} loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
               flush=True)
     lap(11)
 
@@ -932,6 +1123,7 @@ def main() -> None:
         "launches": roof_launches["hbm_copy"],
         **rows["hbm_copy"],
     })
+    records += probe_phases(dev, card, lap, probe_builds, bandwidth["copy_"])
     for r in records:
         r.update({k: v for k, v in rows.get(r["name"], {}).items() if k not in r})
     print(json.dumps({"kernels": [

@@ -2,7 +2,7 @@
 // traffic bounds (K3 and K4 keep their message views in device memory),
 // which divide by the faster of this copy and torch's copy_.
 //
-// Replaces the Pallas TPU kernel of informationbottleneckdecodingldpc_tpu/
+// Replaces the Pallas TPU kernel of the JAX reference's
 // scripts/bench_matrix.py:measure_hbm_bandwidth, which streams 2 MB chunks
 // HBM -> VMEM -> HBM through a depth-4 ring. On Hopper a copy needs no
 // staging: every thread moves 16-byte vectors straight from `src` to `dst`,

@@ -1,5 +1,5 @@
 """The headline, float and DVB-S2 scenarios, the benchmark matrix, its
-roofline and peak rates, and throughput measurement."""
+roofline and peak rates, throughput measurement, and the probes' rates."""
 
 from .benchmarks import (
     DVBS2_SCENARIOS,
@@ -14,6 +14,7 @@ from .benchmarks import (
     measure_sim_throughput,
 )
 from .bitpack import pack_bits, unpack_bits
+from .probes import measure_columns, measure_copies, measure_reads
 
 __all__ = [
     "DVBS2_SCENARIOS",
@@ -24,6 +25,9 @@ __all__ = [
     "build_float_sim",
     "build_headline_sim",
     "build_matrix_sim",
+    "measure_columns",
+    "measure_copies",
+    "measure_reads",
     "measure_sim",
     "measure_sim_throughput",
     "pack_bits",

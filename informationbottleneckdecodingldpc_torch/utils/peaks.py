@@ -47,11 +47,12 @@ def differenced_rate(
     work_per_loop: float,
     loops: int = 4,
     reps: int = 3,
+    min_seconds: float = MIN_SECONDS,
 ) -> float:
     """work/second of ``launch(L)``, which does ``work_per_loop * L`` work:
     the difference of the median CUDA-event times of L and 2L (``reps``
     launches each), with L grown from ``loops`` until one launch takes at
-    least ``MIN_SECONDS``."""
+    least ``min_seconds``."""
 
     def timed(n: int, reps_: int) -> float:
         ts = []
@@ -67,8 +68,8 @@ def differenced_rate(
 
     launch(loops)  # warm-up: build, load, first launch
     t1 = timed(loops, 1)
-    while t1 < MIN_SECONDS and loops < (1 << 24):
-        loops *= max(2, min(int(1.6 * MIN_SECONDS / max(t1, 1e-4)), 64))
+    while t1 < min_seconds and loops < (1 << 24):
+        loops *= max(2, min(int(1.6 * min_seconds / max(t1, 1e-4)), 64))
         t1 = timed(loops, 1)
     t1, t2 = timed(loops, reps), timed(2 * loops, reps)
     return work_per_loop * loops / max(t2 - t1, 1e-9)

@@ -52,6 +52,7 @@ DATA_SHEET_OPS_PER_S = {
     "fp32": SMS * 128 * BOOST_HZ,
     "lookup": SMS * 32 * BOOST_HZ,
     "sfu": SMS * 16 * BOOST_HZ,
+    "tensor_f16": 989e12,  # dense f16 tensor-core flops (P1's one-hot mma)
 }
 
 MINSUM_OPS_PER_CN_EDGE = 4  # abs, min tracking, min1/min2 select, sign
