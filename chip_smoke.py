@@ -7,8 +7,9 @@ float decoders' cells (min-sum and BP on 16-level quantized LLRs, 2.0 dB,
 i_max 50, the same batch) and the encoded chain through K2; the DVB-S2
 R=1/2 N=64800 cells (IB |T|=16 on the encoded chain, min-sum on quantized
 LLRs, 1.0 dB, i_max 50, batch 1024) through the device-memory kernels K3 and
-K4; the benchmark matrix through K5 and K6; and the probes P1-P4 through
-their entry point.
+K4; the benchmark matrix through K5 and K6; the probes P1-P6 through their
+entry point; and the per-codeword random planes of every Monte-Carlo step
+through the Philox kernel.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it);
@@ -90,11 +91,30 @@ their entry point.
     wait: after two waves the scatter's destination and the stage's
     checksums equal to the plain versions, one wave timed (``index_copy_``
     beside the scatter); then the entry point's P4: microseconds per copy and
-    per wait and effective GB/s, with the same raise.
+    per wait and effective GB/s, with the same raise;
+25. the Philox planes (``csrc/philox_planes.cu``), P5 (``csrc/stage_chunks.cu``)
+    and P6 (``csrc/stage_replay.cu``), built beside K1-K6 and P1-P4:
+    registers, shared memory and spills of each kernel;
+26. the Philox kernel equal (``==``) to its plain version on a headline-sized
+    uniform plane (WLAN 1296 x 4096), a DVB-S2 normal plane (64800 x 1024)
+    and a DVB-S2 info-bit plane (32400 x 1024), each timed (``torch.rand`` /
+    ``randn`` beside it as context); its launches are those of phase 4's
+    headline (uniform, one per step) and of phase 14's encoded DVB-S2 cells
+    (bits and normal, one each per step), counted from 0 around each;
+27. P5, every variant (base, dynsem, pipeline, vwrite, unalign) on the 303 MB
+    source: per-block checksums of two iterations equal to the plain version,
+    one iteration timed against 293.6 MB at 3.35 TB/s;
+28. P6, every variant (exact, nochv, cn_only, vn_only, nosmall, nowrite,
+    staged) on DVB-S2 at batch 1024: views and checksums after two bodies
+    equal to the plain version, one body timed against its view traffic at
+    3.35 TB/s, beside K3's ms per body from phase 15;
+29. the probe entry point's P5 and P6 with the launch counts reset: ms per
+    iteration or body, GB/s and the fraction of the bound of every variant,
+    K3's ms per body beside P6 (above 1.05 x 3.35 TB/s: raise).
 
 Each phase prints one line per check and its seconds; any failure raises and
 exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
-the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4}.json``.
+the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4,p5_p6}.json``.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and the device record.
 
@@ -130,6 +150,13 @@ K5_REPLACES = {
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 PROBE_LIBRARIES = ("lut_columns", "bulk_read", "bulk_copies")
+LATE_LIBRARIES = ("philox_planes", "stage_chunks", "stage_replay")
+PHILOX_PLANES = {  # plane kind -> (rows, batch) on the main path's cells
+    "uniform": (1296, 4096),  # the headline's inversion uniforms
+    "normal": (64800, 1024),  # DVB-S2 encoded: the noise
+    "bits": (32400, 1024),  # DVB-S2 encoded: the info bits
+}
+PHILOX_GROUP_OPS = 100  # integer instructions of one Philox4x32-10 group (10 rounds)
 PROBE_REPLACES = {  # a probe variant -> the TPU probe it replaces (the repo's scripts/)
     "cuda_cores": "scripts/mxu_col_probe.py:63",
     "tensor_cores": "scripts/mxu_col_probe.py:102",
@@ -220,16 +247,17 @@ def ref_bands(point: dict, fer_ref: float, ref_blocks: int = 128) -> tuple[float
     return 3 * math.sqrt(p * (1 - p) * both), 3 * per_codeword_sd * math.sqrt(both)
 
 
-def drive_probe(probe: str, counts) -> tuple[dict, dict]:
-    """The probe entry point for ``probe`` ('p1', 'p2,p3', 'p4') with the
-    launch counts set to 0 just before it: the counts it left and its
-    result."""
+def drive_probe(probe: str, *counts) -> tuple:
+    """The probe entry point for ``probe`` ('p1', 'p2,p3', 'p4', 'p5,p6')
+    with the launch counts ``counts`` set to 0 just before it: the counts it
+    left (one dict per counter) and its result."""
     from informationbottleneckdecodingldpc_torch.cli import probes as cli_probes
 
-    counts.clear()
+    for c in counts:
+        c.clear()
     out = Path("chiprun_out") / f"PROBES_{probe.replace(',', '_')}.json"
     result = cli_probes.main(["--only", probe, "--out", str(out)])
-    return dict(counts), result
+    return *(dict(c) for c in counts), result
 
 
 def timed_plain(fn):
@@ -377,6 +405,133 @@ def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict
     return records
 
 
+def late_phases(dev, card: str, lap, builds: dict, philox_counts: dict, k3_ms_per_body: float,
+                dv_layout) -> list[dict]:
+    """Phases 25-29: the Philox planes, P5 and P6 built, held against their
+    plain versions, timed, and P5/P6 run through the probe entry point.
+    ``philox_counts`` holds the Philox launches of the main path's phases.
+    Returns their kernel records."""
+    from informationbottleneckdecodingldpc_torch.kernels import philox_planes
+    from informationbottleneckdecodingldpc_torch.kernels import stage_chunks as p5
+    from informationbottleneckdecodingldpc_torch.kernels import stage_replay as p6
+    from informationbottleneckdecodingldpc_torch.sim import rng
+    from informationbottleneckdecodingldpc_torch.utils import probes, roofline
+
+    # -- 25: the builds (started in phase 2) -------------------------------------------
+    names = {"plane_kernelILi0E": "bits", "plane_kernelILi1E": "normal", "plane_kernelILi2E": "uniform",
+             **{f"stage_kernelILi{k}E": v for k, v in enumerate(("base", "dynsem", "pipeline", "vwrite"))},
+             "cn_kernelILb0E": "cn nowrite", "cn_kernelILb1E": "cn", "vn_kernelILb0E": "vn nowrite",
+             "vn_kernelILb1E": "vn", "staged_kernelILb0E": "cn staged", "staged_kernelILb1E": "vn staged"}
+    for name, b in builds.items():
+        print(f"[25 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K6, P1-P4); "
+              f"{ptxas_lines(b['log'], names)}", flush=True)
+    lap(25)
+    records = []
+
+    def record(name: str, source: str, replaces: str, launches: int, **numbers) -> None:
+        if not launches:
+            raise AssertionError(f"the main path launched no {name}")
+        records.append({"name": name, "route": "cuda",
+                        "source": f"informationbottleneckdecodingldpc_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches, "max_abs_err": 0,
+                        "library_ms": None, **numbers})
+
+    # -- 26: the Philox planes -----------------------------------------------------------
+    key = rng.key_words(0x0123456789ABCDEF)
+    library = {"uniform": torch.rand, "normal": torch.randn}
+    for kind, (rows, batch) in PHILOX_PLANES.items():
+        run = lambda: rng.draw(kind, key, rows, 0, batch, dev)
+        got = run()
+        want, plain_ms_k = timed_plain(lambda: rng.plane_plain(kind, key, rows, 0, batch, dev))
+        if not torch.equal(got, want):
+            raise AssertionError(f"the Philox {kind} plane disagrees with its plain version "
+                                 f"({int((got != want).sum())} elements)")
+        groups = rng.groups(kind, rows) * batch
+        b = roofline.bound(got.numel() * got.element_size(),
+                           {"fp32": groups * PHILOX_GROUP_OPS, "sfu": 3 * got.numel() * (kind == "normal")})
+        ms = cuda_ms(run)
+        context = ""
+        if kind in library:
+            torch_ms = cuda_ms(lambda: library[kind]((rows, batch), device=dev))
+            context = f", torch.{library[kind].__name__} {torch_ms:.4f} ms (other bits, context only)"
+        print(f"[26 exact] Philox {kind} plane {rows} x {batch} equal to the plain version: kernel "
+              f"{ms:.4f} ms, plain {plain_ms_k:.1f} ms{context}, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}) on {card}", flush=True)
+        record(f"philox_planes_{kind}", "philox_planes.cu",
+               "informationbottleneckdecodingldpc_tpu/sim/engine.py:376", philox_counts[kind],
+               ms=ms, plain_ms=plain_ms_k, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    print(f"[26 launches] main path: {json.dumps(philox_counts)}", flush=True)
+    del got, want
+    lap(26)
+
+    # -- 27: P5, the staged 7-plane skeleton ---------------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = probes.read_source(dev, seed=27, rows=p5.HBM_ROWS)
+    p5_rows = {}
+    for variant in p5.VARIANTS:
+        probe = p5.StageChunks(variant)
+        got = probe(src, iters=2)
+        want, plain_ms_k = timed_plain(lambda: probe.plain(src, sms, iters=1))
+        if not torch.equal(got, probe.plain(src, sms, iters=2)):
+            raise AssertionError(f"P5 {variant} checksums disagree with the plain version")
+        b = roofline.bound(probe.bytes_per_iteration + 4 * sms, {})
+        p5_rows[variant] = dict(ms=cuda_ms(lambda: probe(src, iters=1), reps=5), plain_ms=plain_ms_k,
+                                bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        print(f"[27 exact] P5 {variant}: {probe.units} piece-chunks of 7 x {probe.piece_rows} rows "
+              f"on {sms} blocks, checksums equal to the plain version; one iteration "
+              f"{p5_rows[variant]['ms']:.4f} ms, plain {plain_ms_k:.1f} ms, bound "
+              f"{b['bound_ms']:.4f} ms on {card}", flush=True)
+    del src, got, want
+    torch.cuda.empty_cache()
+    lap(27)
+
+    # -- 28: P6, K3's pass program with the folds replaced ---------------------------------
+    base = p6.ReplayViews.random(dv_layout, probes.REPLAY_BATCH, dev, seed=28)
+    scratch = base.clone()
+    p6_rows = {}
+    for variant in p6.VARIANTS:
+        probe = p6.StageReplay(dv_layout, variant)
+        got, want = base.clone(), base.clone()
+        probe(got, bodies=2)
+        probe.plain(want, bodies=2)
+        _, plain_ms_k = timed_plain(lambda: probe.plain(scratch, bodies=1))
+        if not got.equal(want):
+            raise AssertionError(f"P6 {variant} disagrees with its plain version")
+        moved = probe.bytes_per_body(probes.REPLAY_BATCH)
+        b = roofline.bound(moved, {})
+        p6_rows[variant] = dict(ms=cuda_ms(lambda: probe(got, bodies=1), reps=5), plain_ms=plain_ms_k,
+                                bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        print(f"[28 exact] P6 {variant} (TPU {p6.TPU_VARIANT[variant]}): views and checksums after 2 "
+              f"bodies equal to the plain version; one body {p6_rows[variant]['ms']:.4f} ms, plain "
+              f"{plain_ms_k:.1f} ms, bound {b['bound_ms']:.4f} ms ({moved / 1e6:.0f} MB), K3 "
+              f"{k3_ms_per_body:.4f} ms per body (phase 15) on {card}", flush=True)
+        del got, want
+    del base, scratch
+    torch.cuda.empty_cache()
+    lap(28)
+
+    # -- 29: the entry point's P5 and P6 -------------------------------------------------
+    p5_counts, p6_counts, result = drive_probe("p5,p6", p5.launches, p6.launches)
+    for r in result["p5"]:
+        print(f"[29 rate] P5 {r['name']}: {r['ms_per_iteration']:.4f} ms per iteration, "
+              f"{r['bytes_per_s'] / 1e9:.1f} GB/s staged, {r['bound_ms'] / r['ms_per_iteration']:.1%} "
+              f"of the bound on {card}", flush=True)
+    replay = result["p6"]
+    for r in replay["variants"]:
+        print(f"[29 rate] P6 {r['name']}: {r['ms_per_body']:.4f} ms per body, {r['bytes_per_s'] / 1e9:.1f} "
+              f"GB/s of views, {r['bound_ms'] / r['ms_per_body']:.1%} of the view-traffic bound, "
+              f"K3 {replay['k3_ms_per_body']:.4f} ms per body on {card}", flush=True)
+    for variant, numbers in p5_rows.items():
+        record(f"stage_chunks_{variant}", "stage_chunks.cu", "scripts/stage_probe.py:41",
+               p5_counts.get(variant, 0), **numbers)
+    for variant, numbers in p6_rows.items():
+        record(f"stage_replay_{variant}", "stage_replay.cu", "scripts/stage_replay.py:61",
+               p6_counts.get(variant, 0), **numbers)
+    print(f"[29 launches] P5 {json.dumps(p5_counts)}; P6 {json.dumps(p6_counts)}", flush=True)
+    lap(29)
+    return records
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -410,7 +565,7 @@ def main() -> None:
         ib_lut_decode_tiled,
     )
     from informationbottleneckdecodingldpc_torch.cli import bench_matrix
-    from informationbottleneckdecodingldpc_torch.kernels import hbm_copy
+    from informationbottleneckdecodingldpc_torch.kernels import hbm_copy, philox_planes
     from informationbottleneckdecodingldpc_torch.kernels import peaks as k5
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
@@ -434,7 +589,7 @@ def main() -> None:
     # -- 2: build (every library's nvcc run starts at once) -----------------
     t0 = time.perf_counter()
     libraries = ("ib_lut_fused", "float_fused", "ib_lut_hbm", "float_hbm", "peaks", "hbm_copy",
-                 *PROBE_LIBRARIES)
+                 *PROBE_LIBRARIES, *LATE_LIBRARIES)
     with ThreadPoolExecutor(len(libraries)) as pool:
         builds = {n: pool.submit(load_library, n) for n in libraries}
         _, build = builds["ib_lut_fused"].result()
@@ -444,6 +599,7 @@ def main() -> None:
         hbm_builds = {n: builds[n].result()[1] for n in ("ib_lut_hbm", "float_hbm")}
         roof_builds = {n: builds[n].result()[1] for n in ("peaks", "hbm_copy")}
         probe_builds = {n: builds[n].result()[1] for n in PROBE_LIBRARIES}
+        late_builds = {n: builds[n].result()[1] for n in LATE_LIBRARIES}
         all_loaded = time.perf_counter() - t0
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
@@ -509,16 +665,20 @@ def main() -> None:
     sim = build_headline_sim(dev)
     decoder = sim.fused_decoder
     decoder.launches = 0
+    philox_planes.launches.clear()
     rate = measure_sim_throughput(sim, 0.8)
     timed_steps = (1 + 6) * sim.steps_per_dispatch
     point = sim.run_point(0.8, min_errors=10**12, max_blocks=8192)
     high = sim.run_point(2.4, min_errors=10**12, max_blocks=8192)
     launches = decoder.launches
+    philox_counts = {"uniform": philox_planes.launches["uniform"]}
     steps = timed_steps + (point.blocks + high.blocks) // sim.batch_total
-    if launches != steps:
-        raise AssertionError(f"{launches} K1 launches for {steps} steps")
+    if launches != steps or philox_counts["uniform"] != steps or len(philox_planes.launches) != 1:
+        raise AssertionError(f"{launches} K1 and {dict(philox_planes.launches)} Philox launches "
+                             f"for {steps} steps")
     print(f"[4 headline] {rate / 1e6:.2f} Mbit/s coded on {card}; "
-          f"{launches} K1 launches for {steps} steps", flush=True)
+          f"{launches} K1 and {philox_counts['uniform']} Philox uniform-plane launches for "
+          f"{steps} steps", flush=True)
     fer_ok = abs(point.fer - 0.666) <= 0.07
     ber_ok = abs(point.ber - 0.0745) <= 0.15 * 0.0745
     print(f"[4 point] 0.8 dB: {point.blocks} blocks, FER {point.fer:.4f} "
@@ -781,6 +941,8 @@ def main() -> None:
     # -- 14: the DVB-S2 cells and their reference points -----------------------
     dv_encoder = LDPCEncoder(dv_H)
     hbm_launches = {}
+    philox_planes.launches.clear()
+    encoded_steps = 0
     dv_bands = [  # (cell or config, decoder, Eb/N0, FER, BER, reference file)
         ("dvbs2_ib_hbm_encoded", "ib", 1.0, 1.0, 0.004030, "dvbs2_ib_enc"),
         ("dvbs2_T16_0.8", "ib", 0.9, 0.5859375, 0.02623, "dvbs2_ib_enc_d08"),
@@ -809,6 +971,7 @@ def main() -> None:
         steps += DV_DISPATCHES * sim.steps_per_dispatch
         if decoder.launches != steps:
             raise AssertionError(f"{decoder.launches} K3/K4 launches for {steps} steps")
+        encoded_steps += steps if sim.chain == "encoded" else 0
         if rate is not None:
             hbm_launches[decoder_name] = decoder.launches
         fer_band, ber_band = ref_bands(point, fer_ref)
@@ -821,6 +984,12 @@ def main() -> None:
               f"{point['iterations']:.3f}", flush=True)
         if abs(point["fer"] - fer_ref) > fer_band or abs(point["ber"] - ber_ref) > ber_band:
             raise AssertionError(f"{name} FER or BER at {ebn0} dB outside its band")
+    philox_counts.update({k: philox_planes.launches[k] for k in ("normal", "bits")})
+    if philox_counts["normal"] != encoded_steps or philox_counts["bits"] != encoded_steps:
+        raise AssertionError(f"{dict(philox_planes.launches)} Philox launches for {encoded_steps} "
+                             "encoded DVB-S2 steps")
+    print(f"[14 philox] {json.dumps(dict(philox_planes.launches))} Philox plane launches for "
+          f"{encoded_steps} encoded steps", flush=True)
     # BP through run_point and IB through the CLI, each with backend 'auto'.
     sim = BERSimulator(dv_layout, "bp", device=dev, max_iters=50, batch_per_device=256)
     sim.fused_decoder.launches = 0
@@ -1124,6 +1293,7 @@ def main() -> None:
         **rows["hbm_copy"],
     })
     records += probe_phases(dev, card, lap, probe_builds, bandwidth["copy_"])
+    records += late_phases(dev, card, lap, late_builds, philox_counts, hbm_ms["ib"] / 49, dv_layout)
     for r in records:
         r.update({k: v for k, v in rows.get(r["name"], {}).items() if k not in r})
     print(json.dumps({"kernels": [

@@ -1,10 +1,13 @@
-"""Run the probes P1-P4 on one CUDA card and write their rates.
+"""Run the probes P1-P6 on one CUDA card and write their rates.
 
 Port of the main functions of ``scripts/mxu_col_probe.py`` (P1: LUT column
 builds on CUDA cores and on tensor cores), ``scripts/read_bw_probe.py`` and
 ``scripts/read_bw_probe2.py`` (P2, P3: device-memory reads staged by bulk
-copies, by chunk size and stream layout) and ``scripts/dma_probe.py`` (P4:
-the cost of a bulk copy and of a wait, scatter and stage). Each variant
+copies, by chunk size and stream layout), ``scripts/dma_probe.py`` (P4:
+the cost of a bulk copy and of a wait, scatter and stage),
+``scripts/stage_probe.py`` (P5: the staged 7-plane skeleton of a decode
+iteration) and ``scripts/stage_replay.py`` (P6: the port's K3 pass program
+with the folds replaced, beside K3's own time per body). Each variant
 prints one line in the JAX scripts' form with its rate beside its data-sheet
 bound (``utils/probes.py``). The output, ``results/torch/PROBES.json`` by
 default, records the card's name, count and power limit. There is no CPU
@@ -12,7 +15,7 @@ measurement: without a CUDA device the run raises.
 
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.probes \\
-      [--only p1,p2,p3,p4] [--out results/torch/PROBES.json]
+      [--only p1,p2,p3,p4,p5,p6] [--out results/torch/PROBES.json]
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..utils import probes
 from .bench_matrix import card
 
 DEFAULT_OUT = Path(__file__).resolve().parents[2] / "results" / "torch" / "PROBES.json"
-PROBES = ("p1", "p2", "p3", "p4")
+PROBES = ("p1", "p2", "p3", "p4", "p5", "p6")
 
 
 def run(names: list[str], device: torch.device) -> dict:
@@ -41,6 +44,10 @@ def run(names: list[str], device: torch.device) -> dict:
         out["reads"] = probes.measure_reads(reads, device)
     if "p4" in names:
         out["p4"] = probes.measure_copies(device)
+    if "p5" in names:
+        out["p5"] = probes.measure_stage(device)
+    if "p6" in names:
+        out["p6"] = probes.measure_replay(device)
     return out
 
 

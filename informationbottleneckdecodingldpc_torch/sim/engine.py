@@ -17,12 +17,17 @@ Chains:
   AWGN -> threshold quantizer (clusters or LLRs) or 2y/sigma^2; errors are
   counted against the transmitted bits.
 
-Randomness: step ``s`` of the point at ``ebn0_db`` draws from a
-``torch.Generator`` on the device seeded from ``(seed, round(ebn0_db*1000),
-s)``, so a point can resume at step granularity. The encoded chain draws the
-info bits (``randint``) and then the noise (``randn``); the all-zeros chain
-draws one uniform (quantized) or normal (true LLRs) plane. Unlike the JAX
-engine, which keys every codeword, the counters depend on the batch size.
+Randomness is keyed per codeword, as in the JAX engine (``sim/rng.py``):
+column i of every random plane of step ``s`` at ``ebn0_db`` is a pure
+function of ``(seed, round(ebn0_db*1000), s, i)``, Philox4x32-10 under the
+step's key (:func:`step_seed`) counted by the global codeword index i and a
+stream per plane (info bits, noise, inversion uniforms). So codeword i of a
+step is the same at any batch size, a batch split into shards
+(``_draw_step``'s ``offset``) counts what the whole batch counts, and a
+point resumes at step granularity. The encoded chain draws info bits and a
+normal noise plane; the all-zeros chain one uniform (quantized) or normal
+(true LLRs) plane. On a CUDA device the planes come from the Philox kernel
+(``kernels/philox_planes.py``), on the CPU from its plain version.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..encode.encoder import device_encoder
 from ..kernels import float_fused, ib_lut_fused
 from ..kernels.float_hbm import HBMFloatDecoder
 from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
+from . import rng
 
 # The decoder classes of each backend, IB then float.
 BACKENDS = {
@@ -84,7 +90,8 @@ class PointResult:
 
 
 def step_seed(seed: int, ebn0_db: float, step_index: int) -> int:
-    """63-bit generator seed of one Monte-Carlo step."""
+    """63-bit key of one Monte-Carlo step (``sim/rng.py`` splits it into
+    Philox's two key words)."""
     words = [seed, int(round(ebn0_db * 1000)) % 2**32, step_index]
     state = np.random.SeedSequence(words).generate_state(2, np.uint32)
     return (int(state[0]) << 31) ^ int(state[1])
@@ -251,7 +258,7 @@ class BERSimulator:
             self._info_len = encoder.k
             self._encode = device_encoder(encoder, self.device)
         self._quant_cache: dict[float, DeviceQuantizerTables] = {}
-        self._generator = torch.Generator(device=self.device)
+        self._key = rng.key_words(step_seed(self.seed, 0.0, 0))  # set per step by _step
         if backend == "xla":
             if batch_tile is not None:
                 raise ValueError("backend='xla' decodes the whole batch; it takes no batch_tile")
@@ -367,21 +374,19 @@ class BERSimulator:
             codeword, received_plane(codeword, noise, sigma2), qt, sigma2
         )
 
-    def _draw_step(self, qt: DeviceQuantizerTables, sigma2: float):
-        g, dev = self._generator, self.device
-        shape = (self.layout.n_vars, self.batch_total)
+    def _draw_step(self, qt: DeviceQuantizerTables, sigma2: float, offset: int = 0):
+        """One block of codewords [offset, offset + batch) of the step whose
+        key ``_step`` set: (bit errors, frame errors, iterations)."""
+        def draw(kind: str, rows: int) -> torch.Tensor:
+            return rng.draw(kind, self._key, rows, offset, self.batch_total, self.device)
+
+        n = self.layout.n_vars
         if self.chain == "encoded":
-            info = torch.randint(
-                0, 2, (self._info_len, self.batch_total),
-                generator=g, device=dev, dtype=torch.int8,
-            )
-            noise = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-            return self.step_from_encoded(info, noise, qt, sigma2)
+            info = draw("bits", self._info_len)
+            return self.step_from_encoded(info, draw("normal", n), qt, sigma2)
         if self.decoder != "ib" and self.llr_source == "true":
-            noise = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-            return self.step_from_normal(noise, qt, sigma2)
-        u = torch.rand(shape, generator=g, device=dev, dtype=torch.float32)
-        return self.step_from_uniform(u, qt)
+            return self.step_from_normal(draw("normal", n), qt, sigma2)
+        return self.step_from_uniform(draw("uniform", n), qt)
 
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
         """``steps_per_dispatch`` blocks from ``step_index`` on, without a
@@ -389,9 +394,7 @@ class BERSimulator:
         sigma2 = self.sigma2_for(ebn0_db)
         e = f = it = None
         for j in range(self.steps_per_dispatch):
-            self._generator.manual_seed(
-                step_seed(self.seed, ebn0_db, step_index + j)
-            )
+            self._key = rng.key_words(step_seed(self.seed, ebn0_db, step_index + j))
             de, df, dit = self._draw_step(qt, sigma2)
             e, f, it = (de, df, dit) if e is None else (e + de, f + df, it + dit)
         return e, f, it / self.steps_per_dispatch

@@ -14,7 +14,13 @@ from .benchmarks import (
     measure_sim_throughput,
 )
 from .bitpack import pack_bits, unpack_bits
-from .probes import measure_columns, measure_copies, measure_reads
+from .probes import (
+    measure_columns,
+    measure_copies,
+    measure_reads,
+    measure_replay,
+    measure_stage,
+)
 
 __all__ = [
     "DVBS2_SCENARIOS",
@@ -28,8 +34,10 @@ __all__ = [
     "measure_columns",
     "measure_copies",
     "measure_reads",
+    "measure_replay",
     "measure_sim",
     "measure_sim_throughput",
+    "measure_stage",
     "pack_bits",
     "unpack_bits",
 ]

@@ -1,9 +1,10 @@
-"""The probes P1-P4 on one CUDA card: rates beside their data-sheet bounds.
+"""The probes P1-P6 on one CUDA card: rates beside their data-sheet bounds.
 
 Port of the measurement halves of ``scripts/mxu_col_probe.py`` (P1),
-``scripts/read_bw_probe.py`` (P2), ``scripts/read_bw_probe2.py`` (P3) and
-``scripts/dma_probe.py`` (P4). Every rate is differenced between n and 2n
-loops, passes or waves timed with CUDA events (``utils/peaks.py``
+``scripts/read_bw_probe.py`` (P2), ``scripts/read_bw_probe2.py`` (P3),
+``scripts/dma_probe.py`` (P4), ``scripts/stage_probe.py`` (P5) and
+``scripts/stage_replay.py`` (P6). Every rate is differenced between n and 2n
+loops, passes, waves, iterations or bodies timed with CUDA events (``utils/peaks.py``
 ``differenced_rate``), n grown until one launch takes at least
 :data:`MIN_SECONDS`, which cancels the launch and set-up costs:
 
@@ -16,7 +17,14 @@ loops, passes or waves timed with CUDA events (``utils/peaks.py``
   variant and chunk size, beside ``x.sum()`` over the same source;
 - P4 (:func:`measure_copies`): waves/s of each copy variant, as
   microseconds per copy and per wait and effective bytes/s, beside
-  ``index_copy_`` for the scatter.
+  ``index_copy_`` for the scatter;
+- P5 (:func:`measure_stage`): ms per simulated iteration of the staged
+  7-plane skeleton and its staged bytes/s, per variant, against 293.6 MB at
+  3.35 TB/s;
+- P6 (:func:`measure_replay`): ms per body of the port's K3 pass program
+  with the folds replaced, per variant, on DVB-S2 at batch 1024, its view
+  bytes/s against the view traffic at 3.35 TB/s, beside K3's own ms per body
+  (one decode, early exit off, over its bodies).
 
 Bytes are bounded by the data sheet's 3.35 TB/s; a read or copy rate above
 :data:`MAX_SHARE` of it means a byte count is wrong, and raises. There is no
@@ -27,9 +35,15 @@ from __future__ import annotations
 
 import torch
 
+from ..construct.config import DecoderConfig
 from ..kernels import bulk_copies as p4
 from ..kernels import bulk_read as p23
 from ..kernels import lut_columns as p1
+from ..kernels import stage_chunks as p5
+from ..kernels import stage_replay as p6
+from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
+from ..models import get_model
+from .benchmarks import CONFIG_DIR
 from .peaks import _cuda, differenced_rate
 from .roofline import DATA_SHEET_BYTES_PER_S, DATA_SHEET_OPS_PER_S
 
@@ -38,6 +52,8 @@ MAX_SHARE = 1.05  # of the data sheet's bytes/s, above which a byte count is wro
 P4_ROWS = (1, 32, 256)  # 512 B, 16 KB, 128 KB: the TPU probe's 1, 32, 256 rows
 P4_GRID_ROWS = (1, 32)  # sizes also run on one block per SM
 P4_ENTRIES = (8, 2)  # copies per wait at 32 rows, besides a whole wave
+REPLAY_MODEL, REPLAY_BATCH = "dvbs2-64800", 1024  # P6's code and batch: 8 tiles of K3's 128
+REPLAY_CONFIG = "dvbs2_T16_0.6"  # K3's tables for its ms per body beside P6
 
 
 def _bytes_rate_ok(rate: float, what: str) -> None:
@@ -77,11 +93,12 @@ def measure_columns(device: torch.device | str = "cuda") -> list[dict]:
     return out
 
 
-def read_source(device: torch.device, seed: int = 0) -> torch.Tensor:
-    """The 256 MB int32 [1 << 19, 128] source of the read probes, seeded."""
+def read_source(device: torch.device, seed: int = 0, rows: int = p23.SOURCE_ROWS) -> torch.Tensor:
+    """A seeded int32 [rows, 128] source: by default the read probes' 256
+    MB; P5 reads [591,872, 128] (303 MB)."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
-    return torch.randint(-2**31, 2**31 - 1, (p23.SOURCE_ROWS, 128), dtype=torch.int32,
+    return torch.randint(-2**31, 2**31 - 1, (rows, 128), dtype=torch.int32,
                          device=device, generator=g)
 
 
@@ -173,3 +190,71 @@ def measure_copies(device: torch.device | str = "cuda") -> list[dict]:
         del operands
     return out
 
+
+def measure_stage(device: torch.device | str = "cuda") -> list[dict]:
+    """P5: ms per iteration and staged bytes/s of every variant."""
+    device = _cuda(device)
+    src = read_source(device, rows=p5.HBM_ROWS)
+    out = []
+    for variant in p5.VARIANTS:
+        probe = p5.StageChunks(variant)
+        rate = differenced_rate(lambda n: probe(src, iters=n), probe.bytes_per_iteration, loops=1,
+                                min_seconds=MIN_SECONDS)
+        ms = probe.bytes_per_iteration / rate * 1e3
+        bound_ms = probe.bytes_per_iteration / DATA_SHEET_BYTES_PER_S * 1e3
+        print(f"{variant:8s}: {ms:.4f} ms/iter ({p5.N_CHUNKS} chunks), "
+              f"{ms * 1e3 / p5.N_CHUNKS:.2f} us/chunk, stage-read {rate / 1e9:.1f} GB/s "
+              f"({rate / DATA_SHEET_BYTES_PER_S:.1%} of the data sheet's 3.35 TB/s, bound "
+              f"{bound_ms:.4f} ms; pieces of {probe.piece_rows} rows)", flush=True)
+        _bytes_rate_ok(rate, f"P5 {variant}")
+        out.append({"name": variant, "piece_rows": probe.piece_rows,
+                    "bytes_per_iteration": probe.bytes_per_iteration, "ms_per_iteration": ms,
+                    "bytes_per_s": rate, "bound_ms": bound_ms})
+    return out
+
+
+def k3_ms_per_body(layout, batch: int, device: torch.device) -> float:
+    """K3's ms per body on ``layout``: one decode of random clusters at
+    ``batch``, early exit off, timed by CUDA events over 3 decodes after a
+    warm-up, over its i_max - 1 bodies."""
+    tables = DecoderConfig.load(str(CONFIG_DIR / f"{REPLAY_CONFIG}.npz")).tables
+    dec = HBMFusedIBDecoder(layout, tables, early_exit=False)
+    g = torch.Generator(device=device)
+    g.manual_seed(0)
+    clusters = torch.randint(0, tables.cardinality_t_channel, (layout.n_vars, batch),
+                             dtype=torch.int32, device=device, generator=g)
+    dec(clusters)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        dec(clusters)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / 3 / (dec.imax - 1)
+
+
+def measure_replay(device: torch.device | str = "cuda") -> dict:
+    """P6: ms per body, view bytes/s and the fraction of the view-traffic
+    bound of every variant, and K3's ms per body beside them."""
+    device = _cuda(device)
+    layout = get_model(REPLAY_MODEL).make_layout()
+    views = p6.ReplayViews.random(layout, REPLAY_BATCH, device)
+    out = {"model": REPLAY_MODEL, "batch": REPLAY_BATCH, "variants": []}
+    for variant in p6.VARIANTS:
+        probe = p6.StageReplay(layout, variant)
+        moved = probe.bytes_per_body(REPLAY_BATCH)
+        bodies_per_s = differenced_rate(lambda n: probe(views, bodies=n), 1.0, loops=1,
+                                        min_seconds=MIN_SECONDS)
+        rate, ms = moved * bodies_per_s, 1e3 / bodies_per_s
+        bound_ms = moved / DATA_SHEET_BYTES_PER_S * 1e3
+        print(f"{variant:8s}: {ms:.4f} ms/body, views {moved / 1e6:.0f} MB/body -> "
+              f"{rate / 1e9:.1f} GB/s ({bound_ms / ms:.1%} of the view-traffic bound "
+              f"{bound_ms:.4f} ms)", flush=True)
+        _bytes_rate_ok(rate, f"P6 {variant}")
+        out["variants"].append({"name": variant, "tpu_variant": p6.TPU_VARIANT[variant],
+                                "bytes_per_body": moved, "ms_per_body": ms, "bytes_per_s": rate,
+                                "bound_ms": bound_ms})
+    del views
+    out["k3_ms_per_body"] = k3_ms_per_body(layout, REPLAY_BATCH, device)
+    print(f"K3 (dvbs2_T16_0.6, early exit off): {out['k3_ms_per_body']:.4f} ms/body", flush=True)
+    return out

@@ -222,6 +222,8 @@ def test_port_imports_without_jax():
             p + "kernels.hbm_copy", p + "utils.roofline", p + "utils.peaks",
             p + "cli.bench_matrix", p + "codes.graph", p + "ib.dp_quantizer",
             p + "encode.gf2", p + "utils.bitpack", p + "models.zoo",
+            p + "sim.rng", p + "kernels.philox_planes", p + "kernels.stage_chunks",
+            p + "kernels.stage_replay", p + "utils.probes", p + "cli.probes",
         } <= set(names)
         print(len(names))
         """
