@@ -36,16 +36,25 @@ through the Philox kernel.
 10. one decode at batch 4096 per rule by K2 and by the plain whole-batch
     decoder, early exit off (the two compute the same result), timed;
 11. K3 and K4 built from ``csrc/ib_lut_hbm.cu`` and ``csrc/float_hbm.cu``
-    beside K1 and K2: build times, registers and spills per kernel;
+    beside K1 and K2: build times, registers and spills per kernel, each
+    wide instantiation named (K3's per-lane CN and VN passes at 8 bytes and
+    its general ones at 4, K4's per rule and degree range);
 12. K3 against its plain twin on the same CUDA inputs, bit-exact (outputs,
-    unsatisfied counts, mean iterations): DVB-S2 |T|=16 designed at 0.6 dB
-    at 1.0 dB, batch 256, early exit on and off; designed at 0.8 dB at 9.0
-    dB, batch 512 (tiles exit after different bodies); a batch of 200 (the
-    last tile padded); WLAN at 0.8 dB, batch 512;
+    unsatisfied counts, mean iterations), tiles of 128 unless stated:
+    DVB-S2 |T|=16 designed at 0.6 dB at 1.0 dB, batch 256, early exit on
+    and off; designed at 0.8 dB at 9.0 dB, batch 512 (tiles exit after
+    different bodies); a batch of 200 (the last tile padded); batch 512 in
+    tiles of 256; WLAN |T|=16 at 0.8 dB, batch 512 (its degree-11 variable
+    nodes run in the general VN kernel), also in tiles of 200 and of 1024
+    (batch 1024); WLAN |T|=32 (every node in the general kernels: the
+    per-lane tables do not fit);
 13. K4 against its plain twin, both rules, DVB-S2, batch 256: quantized LLRs
     at 1.0 dB with early exit on and off, at 9.0 dB (batch 512, tiles exit),
-    true LLRs, i_max 1; WLAN at batch 512. Equal (``==``) for min-sum and BP
-    alike;
+    true LLRs, i_max 1, i_max 2 with early exit on and off, three tiles
+    that leave after an even number of bodies, after an odd one and not at
+    all (drawn at ``DV_MIXED_DB``, each tile's count from the twin), batch
+    512 in tiles of 256; WLAN at batch 512, also in tiles of 200 and of
+    1024 (batch 1024). Equal (``==``) for min-sum and BP alike;
 14. the DVB-S2 cells through BERSimulator (``backend`` 'auto' picks K3/K4):
     coded Mbit/s, one decode per Monte-Carlo step; FER and BER over 8192
     blocks inside bands of about 3 sigma of the run and the reference's 128
@@ -53,7 +62,11 @@ through the Philox kernel.
     (designed at 0.6 dB) and 0.9 dB (designed at 0.8 dB), min-sum all-zeros
     at 1.0 dB; BP through run_point and IB through the CLI, briefly;
 15. one DVB-S2 decode at batch 1024, early exit off, by K3 and K4 (both
-    rules) and by the plain whole-batch decoders, timed; outputs equal;
+    rules) and by the plain whole-batch decoders, timed; outputs equal; K4
+    min-sum with early exit on at 1.0 dB (no tile leaves), timed; per-pass device times and launches (seed,
+    CN, VN, exit, syndrome, decision) of K3, K4 min-sum with early exit on
+    and K4 BP from ``torch.profiler``, K4 with early exit held to one CN,
+    exit and VN launch per body and one syndrome pass;
 16. the peak microkernels K5 (``csrc/peaks.cu``) and the copy K6
     (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills;
 17. each K5 variant (1-D lookups, 2-D lookups with the tables shared by a
@@ -138,7 +151,12 @@ import torch
 # channel value, so a 128-codeword tile's syndrome clears only when none of
 # its codewords has that bit wrong, which takes a high SNR.
 DV_EXIT_DB = 9.0
+# The Eb/N0 levels (dB) tried for K4's odd/even exit case: DVB-S2 float
+# tiles of 128 leave after 2 bodies at 11 dB, after 3 or 4 (or never) at 9
+# and 8 dB.
+DV_MIXED_DB = (11.0, 9.0, 8.0)
 DV_DISPATCHES = 8  # 8192 blocks per DVB-S2 (and regular) reference point
+PASS_KERNELS = ("seed", "cn", "vn", "exit", "syndrome", "decide")  # K3's and K4's passes
 CHECK_LOOPS = 16  # K5's loop count when held against its plain version
 REG_TWIN_IMAX = 20  # the regular code's twin comparison: i_max 250 cut to 20
 K5_REPLACES = {
@@ -202,6 +220,30 @@ def cuda_ms(fn, reps: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def pass_times(fn) -> dict[str, tuple[float, int]]:
+    """Device milliseconds and launches of each of K3's or K4's passes
+    (:data:`PASS_KERNELS`, by kernel name) in one call of ``fn`` after a
+    warm-up call, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out: dict[str, tuple[float, int]] = {}
+    for e in prof.key_averages():
+        kind = next((k for k in PASS_KERNELS if f"{k}_kernel" in e.key), None)
+        if kind is None:
+            continue
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        ms, n = out.get(kind, (0.0, 0))
+        out[kind] = (ms + us / 1e3, n + e.count)
+    if not out:
+        raise AssertionError("the profiler saw no pass kernel on the card")
+    return {k: out[k] for k in PASS_KERNELS if k in out}
 
 
 class Lap:
@@ -749,6 +791,25 @@ def main() -> None:
             and float(got.iterations) == float(ref.iterations)
         )
 
+    def odd_even_tiles(rule: str, levels, bt: int, imax: int, seed: int, lay):
+        """Three tiles of ``bt`` codewords for K4's exit parity: the first
+        drawn at ``levels`` (dB, tried in turn, each try a new seed) that the
+        twin leaves after an even and after an odd number of bodies, then one
+        at 1.0 dB that runs to the end; and each tile's body count."""
+        found = {}
+        for j, db in enumerate(levels * 4):
+            x = float_llrs(db, bt, seed=seed + j, lay=lay)
+            b = int(float_decode_tiled(lay, x, rule, bt, imax).iterations)
+            if b < imax - 1:
+                found.setdefault(b % 2, (x, b))
+            if len(found) == 2:
+                break
+        else:
+            raise AssertionError(f"no tiles at {levels} dB leave after both odd and even bodies")
+        last = float_llrs(1.0, bt, seed=seed + 99, lay=lay)
+        tiles = [found[0], found[1], (last, int(float_decode_tiled(lay, last, rule, bt, imax).iterations))]
+        return torch.cat([x for x, _ in tiles], 1), [b for _, b in tiles]
+
     float_cases = [  # (label, Eb/N0, true LLRs, max_iters, early exit)
         ("quantized", 2.0, False, 50, True),
         ("quantized", 2.0, False, 50, False),
@@ -856,14 +917,21 @@ def main() -> None:
     lap(10)
 
     # -- 11: K3 and K4 build (started in phase 2) ---------------------------
+    # Every wide instantiation: K3's per-lane CN/VN passes and its general
+    # ones, K4's per rule and degree range.
+    ranges = {0: "low degrees", 1: "high degrees"}
     hbm_names = {
-        "seed_kernel": "seed", "cn_kernelILi0E": "cn minsum", "cn_kernelILi1E": "cn bp",
-        "cn_kernel": "cn", "vn_kernel": "vn", "syndrome_kernel": "syndrome",
-        "exit_kernel": "exit", "decide_kernel": "decide",
+        "ib_lut_hbm": {**{f"{p}_kernelILb1E": f"{p} 8 B per-lane tables" for p in ("cn", "vn")},
+                       **{f"{p}_kernelILb0E": f"{p} general 4 B" for p in ("cn", "vn")}},
+        "float_hbm": {**{f"cn_kernelILi{k}ELb{h}E": f"cn {rule} {r}" for k, rule in enumerate(("minsum", "bp"))
+                         for h, r in ranges.items()},
+                      **{f"vn_kernelILb{h}E": f"vn {r}" for h, r in ranges.items()}},
     }
     for name, b in hbm_builds.items():
+        names = {**hbm_names[name], "seed_kernel": "seed", "syndrome_kernel": "syndrome",
+                 "exit_kernel": "exit", "decide_kernel": "decide"}
         print(f"[11 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1 and K2), all "
-              f"{len(libraries)} loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], hbm_names)}",
+              f"{len(libraries)} loaded after {all_loaded:.2f} s; {ptxas_lines(b['log'], names)}",
               flush=True)
     lap(11)
 
@@ -874,27 +942,32 @@ def main() -> None:
     for name in ("dvbs2_T16_0.6", "dvbs2_T16_0.8"):
         configs[name] = DecoderConfig.load(str(CONFIG_DIR / f"{name}.npz"))
     k3_err = 0
-    k3_cases = [  # (code, layout, config, Eb/N0, batch, early exit)
-        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, True),
-        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, False),
-        ("dvbs2", dv_layout, "dvbs2_T16_0.8", DV_EXIT_DB, 512, True),
-        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 200, True),
-        ("wlan", layout, "wlan_T16_0.8", 0.8, 512, True),
+    k3_cases = [  # (code, layout, config, Eb/N0, batch, early exit, tile or None: 128)
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, True, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, False, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.8", DV_EXIT_DB, 512, True, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 200, True, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 512, True, 256),
+        ("wlan", layout, "wlan_T16_0.8", 0.8, 512, True, None),
+        ("wlan", layout, "wlan_T16_0.8", 0.8, 512, True, 200),
+        ("wlan", layout, "wlan_T16_0.8", 0.8, 1024, True, 1024),
+        ("wlan", layout, "wlan_T32_0.6", 0.8, 512, True, None),
     ]
-    for k, (code, lay, name, ebn0, batch, early_exit) in enumerate(k3_cases):
+    for k, (code, lay, name, ebn0, batch, early_exit, tile) in enumerate(k3_cases):
         ch = clusters(configs[name], ebn0, batch, seed=200 + k, lay=lay)
-        dec = HBMFusedIBDecoder(lay, configs[name].tables, early_exit=early_exit)
-        got = dec(ch)
+        dec = HBMFusedIBDecoder(lay, configs[name].tables, early_exit=early_exit,
+                                batch_tile=tile)
         ref = ib_lut_decode_tiled(
             lay, dec.trellis(dev), ch, dec.batch_tile, early_exit=early_exit
         )
+        got = dec(ch)
         torch.cuda.synchronize()
         err = int((got.outputs - ref.outputs).abs().max())
         k3_err = max(k3_err, err)
         if not same(got, ref):
             raise AssertionError(
-                f"K3 disagrees with its twin on {name} {ebn0} dB batch {batch} "
-                f"early_exit={early_exit}: max |out diff| {err}, iterations "
+                f"K3 disagrees with its twin on {name} {ebn0} dB batch {batch} tile "
+                f"{dec.batch_tile} early_exit={early_exit}: max |out diff| {err}, iterations "
                 f"{float(got.iterations)} vs {float(ref.iterations)}"
             )
         if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
@@ -906,20 +979,34 @@ def main() -> None:
 
     # -- 13: K4 vs plain twin ------------------------------------------------
     k4_err = dict.fromkeys(rules, 0.0)
-    k4_cases = [  # (code, layout, label, Eb/N0, true LLRs, max_iters, early exit, batch)
-        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, True, 256),
-        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, False, 256),
-        ("dvbs2", dv_layout, "quantized", DV_EXIT_DB, False, 50, True, 512),
-        ("dvbs2", dv_layout, "true", 1.0, True, 50, True, 256),
-        ("dvbs2", dv_layout, "quantized", 1.0, False, 1, True, 256),
-        ("wlan", layout, "quantized", 2.0, False, 50, True, 512),
+    k4_cases = [  # (code, layout, label, Eb/N0 (per tile), true LLRs, max_iters, early exit,
+        # batch, tile or None: 128)
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, True, 256, None),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, False, 256, None),
+        ("dvbs2", dv_layout, "quantized", DV_EXIT_DB, False, 50, True, 512, None),
+        ("dvbs2", dv_layout, "true", 1.0, True, 50, True, 256, None),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 1, True, 256, None),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 2, True, 256, None),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 2, False, 256, None),
+        ("dvbs2", dv_layout, "quantized", DV_MIXED_DB, False, 50, True, None, None),
+        ("dvbs2", dv_layout, "quantized", 1.0, False, 50, True, 512, 256),
+        ("wlan", layout, "quantized", 2.0, False, 50, True, 512, None),
+        ("wlan", layout, "quantized", 2.0, False, 50, True, 512, 200),
+        ("wlan", layout, "quantized", 2.0, False, 50, True, 1024, 1024),
     ]
     for rule in rules:
-        for k, (code, lay, label, ebn0, true, imax, early_exit, batch) in enumerate(k4_cases):
-            ch = float_llrs(ebn0, batch, seed=300 + k, true=true, lay=lay)
-            dec = HBMFloatDecoder(lay, rule, max_iters=imax, early_exit=early_exit)
+        for k, (code, lay, label, ebn0, true, imax, early_exit, batch, tile) in enumerate(k4_cases):
+            dec = HBMFloatDecoder(lay, rule, max_iters=imax, early_exit=early_exit,
+                                  batch_tile=tile)
+            bt = dec.batch_tile
+            if isinstance(ebn0, tuple):
+                ch, bodies = odd_even_tiles(rule, ebn0, bt, imax, seed=300 + k, lay=lay)
+                batch = ch.shape[1]
+                label = f"per-tile levels, tiles leave after {bodies} bodies,"
+            else:
+                ch = float_llrs(ebn0, batch, seed=300 + k, true=true, lay=lay)
             got = dec(ch)
-            ref = float_decode_tiled(lay, ch, rule, dec.batch_tile, imax, early_exit=early_exit)
+            ref = float_decode_tiled(lay, ch, rule, bt, imax, early_exit=early_exit)
             torch.cuda.synchronize()
             err = float((got.outputs - ref.outputs).abs().max())
             k4_err[rule] = max(k4_err[rule], err)
@@ -933,7 +1020,7 @@ def main() -> None:
             if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
                 raise AssertionError(f"K4 {rule}'s early exit did not fire at {ebn0} dB")
             print(f"[13 exact] K4 {rule} {code} {label} LLRs {ebn0} dB max_iters {imax} "
-                  f"early_exit={early_exit} batch {batch} tile {dec.batch_tile}: outputs, "
+                  f"early_exit={early_exit} batch {batch} tile {bt}: outputs, "
                   f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
                   flush=True)
     lap(13)
@@ -1046,6 +1133,29 @@ def main() -> None:
               f"{'K3' if kind == 'ib' else 'K4'} {hbm_ms[kind]:.3f} ms (tile "
               f"{dec.batch_tile}), plain whole-batch decoder {hbm_plain_ms[kind]:.1f} ms "
               f"on {card}; outputs equal", flush=True)
+    # The cell's setting: early exit on. At 1.0 dB no tile leaves, so every
+    # body pays its syndrome count and exit step.
+    k4_ee = HBMFloatDecoder(dv_layout, "minsum", max_iters=50, early_exit=True)
+    ee_ms = cuda_ms(lambda: k4_ee(inputs["minsum"]), reps=3)
+    if float(k4_ee(inputs["minsum"]).iterations) != 49.0:
+        raise AssertionError("a tile left early at 1.0 dB: the early-exit time is not of 49 bodies")
+    print(f"[15 times] dvbs2 batch 1024 minsum decode, early exit on, 49 bodies (no tile leaves): "
+          f"K4 {ee_ms:.3f} ms, {ee_ms / hbm_ms['minsum']:.3f} x early exit off on {card}", flush=True)
+    profiled = {
+        "K3": lambda: HBMFusedIBDecoder(dv_layout, tables, early_exit=False)(inputs["ib"]),
+        "K4 minsum early exit": lambda: k4_ee(inputs["minsum"]),
+        "K4 bp": lambda: HBMFloatDecoder(dv_layout, "bp", max_iters=50, early_exit=False)(inputs["bp"]),
+    }
+    for label, fn in profiled.items():
+        passes = pass_times(fn)
+        print(f"[15 passes] {label}, one decode: " + ", ".join(
+            f"{k} {ms:.3f} ms / {n}" for k, (ms, n) in passes.items()) + f" (device ms / launches) on {card}",
+            flush=True)
+        if label == "K4 minsum early exit":
+            n = {k: passes.get(k, (0.0, 0))[1] for k in PASS_KERNELS}
+            if not n["cn"] == n["vn"] == n["exit"] == 49 or n["syndrome"] != 1:
+                raise AssertionError(f"K4 with early exit launched {n}, not CN, exit and VN per body "
+                                     "and one syndrome pass")
     lap(15)
 
     # -- 16: K5 and K6 build (started in phase 2) ----------------------------

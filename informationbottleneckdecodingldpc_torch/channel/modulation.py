@@ -1,6 +1,6 @@
 """BPSK mapping (port of ``channel/modulation.py`` ``bpsk_map``).
 
-QAM, M-PSK and the Gray tables are not ported yet (ROADMAP item 9).
+QAM, M-PSK and the Gray tables are not ported yet (ROADMAP item 1).
 """
 
 from __future__ import annotations

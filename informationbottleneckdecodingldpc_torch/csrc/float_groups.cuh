@@ -63,6 +63,67 @@ __device__ __forceinline__ float boxplus(float a, float b) {
 // same values as float_ops.py's prefix/suffix products. The magnitude is
 // min2 where |m_j| == min1, else min1 (min2 == min1 on ties).
 template <int D>
+__device__ __forceinline__ void minsum_fold(const float (&m)[D], float (&out)[D]) {
+  if constexpr (D == 2) {
+    out[0] = m[1];
+    out[1] = m[0];
+  } else {
+    float min1 = fabsf(m[0]);
+    float min2 = INFINITY;
+    int zeros = m[0] == 0.f;
+    int negs = m[0] < 0.f;
+#pragma unroll
+    for (int k = 1; k < D; ++k) {
+      const float a = fabsf(m[k]);
+      min2 = fminf(min2, fmaxf(min1, a));
+      min1 = fminf(min1, a);
+      zeros += m[k] == 0.f;
+      negs ^= m[k] < 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float s = zeros - int(m[j] == 0.f) > 0
+                          ? 0.f
+                          : ((negs ^ int(m[j] < 0.f)) ? -1.f : 1.f);
+      out[j] = __fmul_rn(s, fabsf(m[j]) == min1 ? min2 : min1);
+    }
+  }
+}
+
+// BP check update with the inputs in registers: the box-plus sequence of
+// cn_bp_group below, operation for operation.
+template <int D>
+__device__ __forceinline__ void bp_fold(const float (&m)[D], float (&out)[D]) {
+  if constexpr (D == 2) {
+    out[0] = m[1];
+    out[1] = m[0];
+  } else {
+    float suf[D];
+    suf[D - 1] = m[D - 1];
+#pragma unroll
+    for (int k = D - 2; k >= 1; --k) suf[k] = boxplus(m[k], suf[k + 1]);
+    out[0] = suf[1];
+    float pre = m[0];
+#pragma unroll
+    for (int j = 1; j < D - 1; ++j) {
+      out[j] = boxplus(pre, suf[j + 1]);
+      pre = boxplus(pre, m[j]);
+    }
+    out[D - 1] = pre;
+  }
+}
+
+// Posterior of one variable node of degree D >= 2: ch + ((m0 + m1) + m2 ...);
+// its outputs are clip(total - m_j).
+template <int D>
+__device__ __forceinline__ float vn_total(float ch, const float (&m)[D]) {
+  float s = m[0];
+#pragma unroll
+  for (int k = 1; k < D; ++k) s = __fadd_rn(s, m[k]);
+  return __fadd_rn(ch, s);
+}
+
+template <int D>
 __device__ void cn_minsum_group(const float* __restrict__ src, float* __restrict__ dst,
                                 const int32_t* __restrict__ route, int off, int n,
                                 int bt, int first, int step) {
@@ -74,30 +135,7 @@ __device__ void cn_minsum_group(const float* __restrict__ src, float* __restrict
 #pragma unroll
     for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
     float out[D];
-    if constexpr (D == 2) {
-      out[0] = m[1];
-      out[1] = m[0];
-    } else {
-      float min1 = fabsf(m[0]);
-      float min2 = INFINITY;
-      int zeros = m[0] == 0.f;
-      int negs = m[0] < 0.f;
-#pragma unroll
-      for (int k = 1; k < D; ++k) {
-        const float a = fabsf(m[k]);
-        min2 = fminf(min2, fmaxf(min1, a));
-        min1 = fminf(min1, a);
-        zeros += m[k] == 0.f;
-        negs ^= m[k] < 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < D; ++j) {
-        const float s = zeros - int(m[j] == 0.f) > 0
-                            ? 0.f
-                            : ((negs ^ int(m[j] < 0.f)) ? -1.f : 1.f);
-        out[j] = __fmul_rn(s, fabsf(m[j]) == min1 ? min2 : min1);
-      }
-    }
+    minsum_fold<D>(m, out);
 #pragma unroll
     for (int k = 0; k < D; ++k)
       dst[__ldg(&route[off + k * n + node]) * bt + c] = out[k];
@@ -157,10 +195,7 @@ __device__ void vn_group(const float* __restrict__ src, float* __restrict__ dst,
       float m[D];
 #pragma unroll
       for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      float s = m[0];
-#pragma unroll
-      for (int k = 1; k < D; ++k) s = __fadd_rn(s, m[k]);
-      const float total = __fadd_rn(ch, s);
+      const float total = vn_total<D>(ch, m);
 #pragma unroll
       for (int k = 0; k < D; ++k)
         dst[__ldg(&route[off + k * n + node]) * bt + c] = clip_llr(__fsub_rn(total, m[k]));

@@ -39,6 +39,63 @@ struct Graph {
   int bt, t_decoder;
 };
 
+// CN leave-one-out of one check node of degree D >= 2 (before alignment).
+// `lut(l, a, b)` is pairwise LUT l: Luts, or a layout of the same tables.
+template <int D, class Lut>
+__device__ __forceinline__ void cn_fold(const uint8_t (&m)[D], uint8_t (&out)[D], Lut lut) {
+  if constexpr (D == 2) {
+    out[0] = m[1];
+    out[1] = m[0];
+  } else {
+    // Prefixes f[k] = fold(m_0..m_k), k = 1..D-2.
+    uint8_t f[D];
+    f[1] = lut(0, m[0], m[1]);
+#pragma unroll
+    for (int k = 2; k < D - 1; ++k) f[k] = lut(k - 1, f[k - 1], m[k]);
+    // Output j >= 2 continues prefix f[j-1]; message k takes LUT k-2.
+#pragma unroll
+    for (int j = 2; j < D; ++j) {
+      uint8_t s = f[j - 1];
+#pragma unroll
+      for (int k = j + 1; k < D; ++k) s = lut(k - 2, s, m[k]);
+      out[j] = s;
+    }
+    uint8_t s0 = lut(0, m[1], m[2]);
+    uint8_t s1 = lut(0, m[0], m[2]);
+#pragma unroll
+    for (int k = 3; k < D; ++k) {
+      s0 = lut(k - 2, s0, m[k]);
+      s1 = lut(k - 2, s1, m[k]);
+    }
+    out[0] = s0;
+    out[1] = s1;
+  }
+}
+
+// VN leave-one-out of one variable node of degree D >= 2 with its channel
+// cluster `ch` (before alignment).
+template <int D, class Lut>
+__device__ __forceinline__ void vn_fold(uint8_t ch, const uint8_t (&m)[D], uint8_t (&out)[D],
+                                        Lut lut) {
+  // Prefixes f[k] = fold(ch, m_0..m_k); message k >= 1 takes LUT k.
+  uint8_t f[D];
+  f[0] = lut(0, ch, m[0]);
+#pragma unroll
+  for (int k = 1; k < D - 1; ++k) f[k] = lut(k, f[k - 1], m[k]);
+  // Output j continues f[j-1]; message k then takes LUT k-1.
+#pragma unroll
+  for (int j = 1; j < D; ++j) {
+    uint8_t s = f[j - 1];
+#pragma unroll
+    for (int k = j + 1; k < D; ++k) s = lut(k - 1, s, m[k]);
+    out[j] = s;
+  }
+  uint8_t s0 = lut(0, ch, m[1]);
+#pragma unroll
+  for (int k = 2; k < D; ++k) s0 = lut(k - 1, s0, m[k]);
+  out[0] = s0;
+}
+
 template <int D>
 __device__ void cn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                          Luts lut, const uint8_t* __restrict__ match_row,
@@ -58,33 +115,7 @@ __device__ void cn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ 
       if (parity) atomicAdd(&unsat[c], 1);
     }
     uint8_t out[D];
-    if constexpr (D == 2) {
-      out[0] = m[1];
-      out[1] = m[0];
-    } else {
-      // Prefixes f[k] = fold(m_0..m_k), k = 1..D-2.
-      uint8_t f[D];
-      f[1] = lut(0, m[0], m[1]);
-#pragma unroll
-      for (int k = 2; k < D - 1; ++k) f[k] = lut(k - 1, f[k - 1], m[k]);
-      // Output j >= 2 continues prefix f[j-1]; message k takes LUT k-2.
-#pragma unroll
-      for (int j = 2; j < D; ++j) {
-        uint8_t s = f[j - 1];
-#pragma unroll
-        for (int k = j + 1; k < D; ++k) s = lut(k - 2, s, m[k]);
-        out[j] = s;
-      }
-      uint8_t s0 = lut(0, m[1], m[2]);
-      uint8_t s1 = lut(0, m[0], m[2]);
-#pragma unroll
-      for (int k = 3; k < D; ++k) {
-        s0 = lut(k - 2, s0, m[k]);
-        s1 = lut(k - 2, s1, m[k]);
-      }
-      out[0] = s0;
-      out[1] = s1;
-    }
+    cn_fold<D>(m, out, lut);
 #pragma unroll
     for (int k = 0; k < D; ++k)
       dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];
@@ -109,24 +140,8 @@ __device__ void vn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ 
       uint8_t m[D];
 #pragma unroll
       for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      // Prefixes f[k] = fold(ch, m_0..m_k); message k >= 1 takes LUT k.
-      uint8_t f[D];
-      f[0] = lut(0, ch, m[0]);
-#pragma unroll
-      for (int k = 1; k < D - 1; ++k) f[k] = lut(k, f[k - 1], m[k]);
       uint8_t out[D];
-      // Output j continues f[j-1]; message k then takes LUT k-1.
-#pragma unroll
-      for (int j = 1; j < D; ++j) {
-        uint8_t s = f[j - 1];
-#pragma unroll
-        for (int k = j + 1; k < D; ++k) s = lut(k - 1, s, m[k]);
-        out[j] = s;
-      }
-      uint8_t s0 = lut(0, ch, m[1]);
-#pragma unroll
-      for (int k = 2; k < D; ++k) s0 = lut(k - 1, s0, m[k]);
-      out[0] = s0;
+      vn_fold<D>(ch, m, out, lut);
 #pragma unroll
       for (int k = 0; k < D; ++k)
         dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];

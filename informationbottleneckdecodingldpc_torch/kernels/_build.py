@@ -119,15 +119,20 @@ class CLibrary:
 
 class KernelLibrary(CLibrary):
     """The C interface of a decoder library of ``csrc/``: ``<name>_decode``
-    returning a cudaError_t, ``<name>_error_string`` and
-    ``<name>_max_degree``, which must equal the wrapper's ``max_degree``."""
+    returning a cudaError_t, ``<name>_error_string``, and per constant of the
+    wrapper (``max_degree`` and any in ``constants``) a function
+    ``<name>_<constant>`` returning the source's value, which must equal it."""
 
-    def __init__(self, name: str, decode_argtypes: list, max_degree: int):
+    def __init__(self, name: str, decode_argtypes: list, max_degree: int, **constants: int):
+        constants = {"max_degree": max_degree, **constants}
         super().__init__(
-            name, {f"{name}_decode": decode_argtypes, f"{name}_max_degree": []}
+            name,
+            {f"{name}_decode": decode_argtypes, **{f"{name}_{c}": [] for c in constants}},
         )
-        if self.value(f"{name}_max_degree") != max_degree:
-            raise RuntimeError(f"csrc/{name}.cu and the wrapper's MAX_DEGREE disagree")
+        for c, want in constants.items():
+            got = self.value(f"{name}_{c}")
+            if got != want:
+                raise RuntimeError(f"csrc/{name}.cu's {c} is {got}, the wrapper's {want}")
 
     def decode(self, *args) -> None:
         """Launch the decode; raises with CUDA's message if it was refused."""

@@ -5,7 +5,11 @@ Port of ``kernels/ib_lut_hbm.py`` (``HBMFusedIBDecoder``), for codes whose
 views do not fit one CTA's shared memory (DVB-S2 N=64800). For a CUDA tensor
 the decoder launches the hand-written kernel ``csrc/ib_lut_hbm.cu``: uint8
 views ``[tile][row][batch_tile]`` in device memory, one launch per pass over
-all tiles, early exit per tile. For a CPU tensor it runs the plain twin
+all tiles, early exit per tile, and CN and VN passes in which a thread moves
+8 bytes of a view row per access (``csrc/hbm_wide.cuh``) and reads the
+pairwise tables from a copy per lane. The kernel takes tiles of up to
+:data:`HBM_MAX_TILE` codewords that 8 divides; :meth:`~HBMFusedIBDecoder.check_tile`
+refuses any other tile before the card is touched. For a CPU tensor it runs the plain twin
 :func:`~.ib_lut_fused.ib_lut_decode_tiled` with the same tile. The two agree
 bit for bit: outputs in natural variable order, per-codeword unsatisfied
 counts and the mean iteration count. No CUDA tensor ever reaches the twin, and
@@ -34,9 +38,30 @@ from .ib_lut_fused import (
 )
 
 MAX_DEGREE = 16  # kMaxDegree in csrc/ib_lut_hbm.cu
-# A tile of 128 codewords makes each routed row write 128 contiguous bytes
-# (four full 32-byte sectors) and keeps 8 tiles in flight at batch 1024.
+# The default tile: 128 codewords make each routed row write 128 contiguous
+# bytes (four full 32-byte sectors) and keep 8 tiles in flight at batch 1024.
 HBM_BATCH_TILE = 128
+# The largest tile of K3's and K4's wide passes (kMaxTile in
+# csrc/hbm_wide.cuh): a row of 4-column items fills a block of 256 threads.
+HBM_MAX_TILE = 1024
+# Bytes per thread and view row of K3's per-lane passes (kVec in
+# csrc/ib_lut_hbm.cu): 80 registers; 16 took 128 and 4 ran slower.
+K3_VEC = 8
+
+
+def check_wide_tile(batch_tile: int, vec: int) -> None:
+    """Refuse a tile the wide kernels do not take: ``vec`` columns per
+    thread must divide it, and it holds at most :data:`HBM_MAX_TILE`
+    codewords."""
+    if batch_tile % vec:
+        raise ValueError(
+            f"{vec} columns per thread do not divide batch_tile {batch_tile}"
+        )
+    if not 0 < batch_tile <= HBM_MAX_TILE:
+        raise ValueError(
+            f"the device-memory kernels take tiles of at most {HBM_MAX_TILE} "
+            f"codewords, not {batch_tile}"
+        )
 
 
 def check_view_tile(layout: DecodeLayout, batch_tile: int) -> None:
@@ -56,18 +81,21 @@ def tile_scratch(
     dtype: torch.dtype,
     device: torch.device,
     zero_vn_view: bool = False,
+    vn_views: int = 1,
 ) -> tuple[torch.Tensor, ...]:
     """K3's and K4's scratch for ``batch`` codewords in tiles of
-    ``batch_tile``: the CN and VN views [n_tiles, n_edges, tile] and the
-    channel plane [n_tiles, n_vars, tile] of ``dtype``, then per tile the
-    int32 unsat counts [n_tiles, tile] and state [n_tiles, 2]."""
-    check_view_tile(layout, batch_tile)
+    ``batch_tile``: the CN view [n_tiles, n_edges, tile], the VN view of
+    the same shape (K3) or ``vn_views`` of them stacked in front (K4's two,
+    [2, n_tiles, n_edges, tile]), and the channel plane [n_tiles, n_vars,
+    tile] of ``dtype``, then per tile the int32 unsat counts [n_tiles, tile]
+    and state [n_tiles, 2]."""
     n_tiles = -(-batch // batch_tile)
     views = (n_tiles, layout.n_edges, batch_tile)
+    vn_shape = views if vn_views == 1 else (vn_views, *views)
     new = functools.partial(torch.empty, device=device)
     return (
         new(views, dtype=dtype),
-        (torch.zeros if zero_vn_view else torch.empty)(views, dtype=dtype, device=device),
+        (torch.zeros if zero_vn_view else torch.empty)(vn_shape, dtype=dtype, device=device),
         new((n_tiles, layout.n_vars, batch_tile), dtype=dtype),
         new((n_tiles, batch_tile), dtype=torch.int32),
         new((n_tiles, 2), dtype=torch.int32),
@@ -78,9 +106,10 @@ class HBMFusedIBDecoder(FusedIBDecoder):
     """IB decoder with device-memory views: clusters [n_vars, batch] int32
     -> DecodeResult.
 
-    ``batch_tile`` codewords exit together (default 128). Tables, checks and
-    the CPU twin are :class:`FusedIBDecoder`'s; ``launches`` counts decodes
-    on the card (the CPU twin does not count).
+    ``batch_tile`` codewords exit together (default 128; the card takes
+    multiples of 8 up to :data:`HBM_MAX_TILE`, the CPU twin any tile).
+    Tables, checks and the CPU twin are :class:`FusedIBDecoder`'s;
+    ``launches`` counts decodes on the card (the CPU twin does not count).
     """
 
     def __init__(
@@ -101,9 +130,15 @@ class HBMFusedIBDecoder(FusedIBDecoder):
             batch_tile=batch_tile or HBM_BATCH_TILE,
         )
 
+    def check_tile(self) -> None:
+        """Raise ValueError if the card's kernel does not take ``batch_tile``."""
+        check_view_tile(self.layout, self.batch_tile)
+        check_wide_tile(self.batch_tile, K3_VEC)
+
     def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:
         lay = self.layout
         check_channel_input(channel_clusters, torch.int32, lay, "channel clusters")
+        self.check_tile()
         bt = self.batch_tile
         device = channel_clusters.device
         ch = channel_clusters.contiguous()
@@ -129,8 +164,7 @@ class HBMFusedIBDecoder(FusedIBDecoder):
                 t.cardinality_t_channel, t.cardinality_t_decoder,
                 max(lay.d_c_max - 2, 1), lay.d_v_max,
                 _slot(t.cardinality_t_channel, t.cardinality_t_decoder),
-                lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit),
-                stream,
+                lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit), stream,
             )
         self.launches += 1
         return DecodeResult(
@@ -146,4 +180,6 @@ def _library():
     from ._build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    return KernelLibrary("ib_lut_hbm", [p] * 19 + [i] * 16 + [p], MAX_DEGREE)
+    return KernelLibrary(
+        "ib_lut_hbm", [p] * 19 + [i] * 16 + [p], MAX_DEGREE, vec=K3_VEC, max_tile=HBM_MAX_TILE
+    )

@@ -171,7 +171,10 @@ class BERSimulator:
     plain twin on the CPU, and exits early per tile of ``batch_tile``
     codewords (default: the kernel's), not over the whole batch, so the mean
     iteration count depends on the tile while the BER does not;
-    ``batch_tile=batch_per_device`` gives whole-batch lockstep.
+    ``batch_tile=batch_per_device`` gives whole-batch lockstep. On a card,
+    'hbm' takes tiles of up to 1024 codewords that its vector width divides
+    (8 for IB, 4 for min-sum and BP) and refuses others when the simulator
+    is built.
 
     'xla' is the whole-batch path the JAX package also offers, chosen only
     by name ('auto' never picks it) and not a fallback: the plain decoders
@@ -209,11 +212,11 @@ class BERSimulator:
     ):
         if modulation != "bpsk":
             raise NotImplementedError(
-                f"modulation {modulation!r} is not ported yet (ROADMAP item 9)"
+                f"modulation {modulation!r} is not ported yet (ROADMAP item 1)"
             )
         if n_devices != 1:
             raise NotImplementedError(
-                "more than one device is not ported yet (ROADMAP item 10)"
+                "more than one device is not ported yet (ROADMAP item 3)"
             )
         if decoder not in ("ib", "minsum", "bp"):
             raise ValueError(f"unknown decoder {decoder!r}")
@@ -294,6 +297,8 @@ class BERSimulator:
                 early_exit=self.early_exit,
                 batch_tile=batch_tile,
             )
+        if backend == "hbm" and self.device.type == "cuda":
+            self.fused_decoder.check_tile()
 
     # ------------------------------------------------------------------
     def _count_errors(
