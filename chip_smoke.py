@@ -19,22 +19,26 @@ through the Philox kernel.
    step, FER and BER at 0.8 dB inside bands around the JAX package's
    reference curve, mean iterations at 0.8 and 2.4 dB;
 5. one decode at batch 4096 by K1 and by the twin, timed;
-6. K2 built from ``csrc/float_fused.cu``: build time, registers and spills
-   of each rule's kernel;
+6. K2 built from ``csrc/float_fused.cu``: build time, the threads per CTA
+   of each rule, registers and spills of each rule's kernel;
 7. K2 against its plain twin on the same CUDA inputs, both rules, WLAN,
    i_max 50, batch 512 (the last 5-codeword tile padded): quantized LLRs at
    2.0 dB with early exit on and off, at 4.0 dB (tiles exit after different
-   bodies), true LLRs at 2.0 dB, and i_max 1. Outputs (``==``, so +0 == -0),
-   unsatisfied counts and mean iterations must be equal for min-sum and for
-   BP: K2 and torch on the card both take expf/log1pf from CUDA's math
-   library;
+   bodies), true LLRs at 2.0 dB, i_max 1 with early exit on and off, i_max 2
+   and 3 at 4.0 dB with early exit on and off, and three tiles that leave
+   after an even number of bodies, after an odd one and not at all (drawn
+   at ``WLAN_MIXED_DB``, each tile's count from the twin). Outputs (``==``,
+   so +0 == -0), unsatisfied counts and mean iterations must be equal for
+   min-sum and for BP: K2 and torch on the card both take expf/log1pf from
+   CUDA's math library;
 8. the two float cells: coded Mbit/s and mean iterations, one K2 launch per
    Monte-Carlo step;
 9. the encoded chain against the JAX package's reference curves, 32768
    blocks each: min-sum at 1.6 dB, BP at 1.2 dB, IB (K1) at 0.8 dB; FER and
    BER inside bands of about 3 sigma of both samples;
 10. one decode at batch 4096 per rule by K2 and by the plain whole-batch
-    decoder, early exit off (the two compute the same result), timed;
+    decoder, early exit off (the two compute the same result), timed; K2
+    with early exit on at 2.0 dB, timed;
 11. K3 and K4 built from ``csrc/ib_lut_hbm.cu`` and ``csrc/float_hbm.cu``
     beside K1 and K2: build times, registers and spills per kernel, each
     wide instantiation named (K3's per-lane CN and VN passes at 8 bytes and
@@ -68,12 +72,15 @@ through the Philox kernel.
     and K4 BP from ``torch.profiler``, K4 with early exit held to one CN,
     exit and VN launch per body and one syndrome pass;
 16. the peak microkernels K5 (``csrc/peaks.cu``) and the copy K6
-    (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills;
+    (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills; the
+    FP32-pipe and SFU instructions of one box-plus in K5c's chain loop
+    (``cuobjdump -sass``) beside the roofline's count;
 17. each K5 variant (1-D lookups, 2-D lookups with the tables shared by a
     block and copied per lane, each at |T| 16 and 32; the four float ops)
     against its plain version on the card, equal (``==``), at 16 loops over
     the thread count the peak measurement launches, and K6 over one 256 MB
-    pass, each timed;
+    pass and over 256 MB + 12,345 bytes (not a whole number of its chunks),
+    each timed;
 18. the peaks (lookups/s, float op applications/s, each against its
     data-sheet rate) and K6's copy bandwidth against ``copy_`` and the data
     sheet's 3.35 TB/s (above 1.05 x that the byte count is wrong: raise);
@@ -138,6 +145,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import tempfile
 import time
@@ -155,6 +163,10 @@ DV_EXIT_DB = 9.0
 # tiles of 128 leave after 2 bodies at 11 dB, after 3 or 4 (or never) at 9
 # and 8 dB.
 DV_MIXED_DB = (11.0, 9.0, 8.0)
+# The Eb/N0 levels (dB) tried for K2's odd/even exit case: WLAN tiles of 5
+# leave after about seven bodies on average at 4 dB (phase 7), later at 2.5
+# and 3 dB.
+WLAN_MIXED_DB = (4.0, 3.0, 2.5)
 DV_DISPATCHES = 8  # 8192 blocks per DVB-S2 (and regular) reference point
 PASS_KERNELS = ("seed", "cn", "vn", "exit", "syndrome", "decide")  # K3's and K4's passes
 CHECK_LOOPS = 16  # K5's loop count when held against its plain version
@@ -207,6 +219,35 @@ def ptxas_lines(log: str, names: dict[str, str] | None = None) -> str:
         elif "registers" in line or "spill" in line:
             out.append(f"{label + ': ' if label else ''}{line.strip()}")
     return "; ".join(out)
+
+
+def loop_op_counts(lib_path: str, kernel: str) -> dict[str, int]:
+    """Instructions per opcode that one trip of the innermost loop of a
+    kernel runs on its common path, from ``cuobjdump -sass`` of a built
+    library: the first function whose mangled name holds ``kernel``, the
+    instructions from the target of its shortest backward branch to that
+    branch, less those a predicated forward branch jumps over (the libm
+    calls' special-value paths, which finite inputs skip)."""
+    from informationbottleneckdecodingldpc_torch.kernels._build import _nvcc
+
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", lib_path], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:] if kernel in f.splitlines()[0])
+    ins = []  # (address, opcode, branch target or None, predicated)
+    for addr, pred, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([^;]*);", body):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        ins.append((int(addr, 16), op, int(target.group(1), 16) if target else None, bool(pred)))
+    end, start = min(((a, t) for a, op, t, _ in ins if op == "BRA" and t is not None and t < a),
+                     key=lambda at: at[0] - at[1])
+    loop = [i for i in ins if start <= i[0] <= end]
+    skipped = [(a, t) for a, op, t, pred in loop if op == "BRA" and pred and t is not None and t > a]
+    counts: dict[str, int] = {}
+    for a, op, _, _ in loop:
+        if not any(s < a < t for s, t in skipped):
+            counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -607,7 +648,7 @@ def main() -> None:
         ib_lut_decode_tiled,
     )
     from informationbottleneckdecodingldpc_torch.cli import bench_matrix
-    from informationbottleneckdecodingldpc_torch.kernels import hbm_copy, philox_planes
+    from informationbottleneckdecodingldpc_torch.kernels import float_fused, hbm_copy, philox_planes
     from informationbottleneckdecodingldpc_torch.kernels import peaks as k5
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
@@ -760,7 +801,10 @@ def main() -> None:
 
     # -- 6: K2 build ------------------------------------------------------
     print(f"[6 build] float_fused.cu: nvcc {k2_build['seconds']:.2f} s (beside "
-          f"K1), both loaded after {k2_loaded:.2f} s; "
+          f"K1), both loaded after {k2_loaded:.2f} s; threads per CTA at most "
+          f"{json.dumps(float_fused.THREADS)} (on WLAN, " + ", ".join(
+              f"{rule} {t // bt} nodes x {bt} columns" for rule, t in float_fused.THREADS.items()
+              for bt in [float_fused.pick_float_batch_tile(layout)]) + "); "
           f"{ptxas_lines(k2_build['log'], {'ILi0E': 'minsum', 'ILi1E': 'bp'})}",
           flush=True)
     lap(6)
@@ -792,7 +836,7 @@ def main() -> None:
         )
 
     def odd_even_tiles(rule: str, levels, bt: int, imax: int, seed: int, lay):
-        """Three tiles of ``bt`` codewords for K4's exit parity: the first
+        """Three tiles of ``bt`` codewords for K2's and K4's exit parity: the first
         drawn at ``levels`` (dB, tried in turn, each try a new seed) that the
         twin leaves after an even and after an odd number of bodies, then one
         at 1.0 dB that runs to the end; and each tile's body count."""
@@ -810,17 +854,28 @@ def main() -> None:
         tiles = [found[0], found[1], (last, int(float_decode_tiled(lay, last, rule, bt, imax).iterations))]
         return torch.cat([x for x, _ in tiles], 1), [b for _, b in tiles]
 
-    float_cases = [  # (label, Eb/N0, true LLRs, max_iters, early exit)
+    float_cases = [  # (label, Eb/N0 (per tile), true LLRs, max_iters, early exit)
         ("quantized", 2.0, False, 50, True),
         ("quantized", 2.0, False, 50, False),
         ("quantized", 4.0, False, 50, True),
         ("true", 2.0, True, 50, True),
         ("quantized", 2.0, False, 1, True),
+        ("quantized", 2.0, False, 1, False),
+        ("quantized", 4.0, False, 2, True),
+        ("quantized", 4.0, False, 2, False),
+        ("quantized", 4.0, False, 3, True),
+        ("quantized", 4.0, False, 3, False),
+        ("quantized", WLAN_MIXED_DB, False, 50, True),
     ]
     for rule in rules:
         for k, (label, ebn0, true, imax, early_exit) in enumerate(float_cases):
-            ch = float_llrs(ebn0, 512, seed=100 + k, true=true)
             dec = FusedFloatDecoder(layout, rule, max_iters=imax, early_exit=early_exit)
+            if isinstance(ebn0, tuple):
+                ch, bodies = odd_even_tiles(rule, ebn0, dec.batch_tile, imax, seed=100 + k,
+                                            lay=layout)
+                label = f"per-tile levels, tiles leave after {bodies} bodies,"
+            else:
+                ch = float_llrs(ebn0, 512, seed=100 + k, true=true)
             got = dec(ch)
             ref = float_decode_tiled(
                 layout, ch, rule, dec.batch_tile, imax, early_exit=early_exit
@@ -836,7 +891,7 @@ def main() -> None:
                     f"{float(ref.iterations)}"
                 )
             print(f"[7 exact] K2 {rule} {label} LLRs {ebn0} dB max_iters {imax} "
-                  f"early_exit={early_exit} batch 512 tile {dec.batch_tile}: outputs, "
+                  f"early_exit={early_exit} batch {ch.shape[1]} tile {dec.batch_tile}: outputs, "
                   f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
                   flush=True)
     lap(7)
@@ -913,6 +968,10 @@ def main() -> None:
         print(f"[10 times] batch 4096 {rule} decode, 49 bodies: K2 {k2_ms[rule]:.3f} "
               f"ms (tile {dec.batch_tile}), plain whole-batch decoder "
               f"{k2_plain_ms[rule]:.1f} ms on {card}; outputs equal", flush=True)
+        dec = FusedFloatDecoder(layout, rule, max_iters=50, early_exit=True)
+        ee_ms = cuda_ms(lambda: dec(ch))
+        print(f"[10 times] batch 4096 {rule} decode, early exit on at 2.0 dB: K2 {ee_ms:.3f} ms, "
+              f"mean iterations {float(dec(ch).iterations):.3f} on {card}", flush=True)
 
     lap(10)
 
@@ -1167,6 +1226,18 @@ def main() -> None:
     for name, b in roof_builds.items():
         print(f"[16 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K4); "
               f"{ptxas_lines(b['log'], k5_names)}", flush=True)
+    # One box-plus as compiled: K5c's chain loop per box-plus, each of which
+    # has one fminf(|a|, |b|) (FMNMX); expf and log1pf have none.
+    ops = loop_op_counts(roof_builds["peaks"]["path"], "float_pair_kernelINS_7BoxPlus")
+    n_boxplus = ops["FMNMX"]
+    fp32 = sum(ops.get(op, 0) for op in roofline.FP32_OPCODES) / n_boxplus
+    sfu = sum(ops.get(op, 0) for op in roofline.SFU_OPCODES) / n_boxplus
+    print(f"[16 sass] K5c box-plus loop: {n_boxplus} box-plus a trip, per box-plus "
+          f"{sum(ops.values()) / n_boxplus:.3f} instructions, {fp32:.3f} FP32-pipe "
+          f"({', '.join(roofline.FP32_OPCODES)}) and {sfu:.3f} SFU; the roofline counts "
+          f"{json.dumps(roofline.BOXPLUS_SASS)}; "
+          + json.dumps({k: round(v / n_boxplus, 3) for k, v in sorted(ops.items(), key=lambda kv: -kv[1])}),
+          flush=True)
     lap(16)
 
     # -- 17: K5 and K6 against their plain versions ----------------------------
@@ -1214,6 +1285,15 @@ def main() -> None:
     torch.cuda.synchronize()
     if not torch.equal(dst, ref_dst):
         raise AssertionError("K6 disagrees with copy_")
+    ragged = torch.randint(0, 255, (roofline.COPY_BYTES + 12345,), dtype=torch.uint8, device=dev)
+    ragged_dst = torch.zeros_like(ragged)
+    hbm_copy.copy(ragged, ragged_dst)
+    torch.cuda.synchronize()
+    if not torch.equal(ragged, ragged_dst):
+        raise AssertionError("K6 disagrees with copy_ on a size that is not a multiple of its chunk")
+    print(f"[17 exact] K6 over {ragged.numel()} bytes ({ragged.numel() % hbm_copy.CHUNK_BYTES} past "
+          f"the last {hbm_copy.CHUNK_BYTES}-byte chunk) equal to the source", flush=True)
+    del ragged, ragged_dst
     rows["hbm_copy"] = dict(
         max_abs_err=0, plain_ms=cuda_ms(lambda: ref_dst.copy_(src)),
         ms=cuda_ms(lambda: hbm_copy.copy(src, dst)),

@@ -1,0 +1,161 @@
+"""Time the decode kernels K2, K3 and K4 and the copy K6 on one CUDA card.
+
+Each time is the mean of ``--reps`` calls after a warm-up, by CUDA events,
+on the inputs of ``chip_smoke.py``'s timing phases (channel draws from
+``torch.Generator`` seed 99, 16-level quantized LLRs or clusters, i_max 50,
+default tiles):
+
+- K2 (phase 10): WLAN N=1296 at batch 4096 and 2.0 dB, min-sum and BP, early
+  exit off (49 bodies) and on; regular (3,6) N=8000 min-sum at batch 1024 and
+  2.0 dB (one codeword per CTA), early exit off and on;
+- K3 and K4 (phase 15): DVB-S2 R=1/2 N=64800 at batch 1024 and 1.0 dB; K3 (IB
+  |T|=16 designed at 0.6 dB, early exit off), K4 min-sum with early exit off
+  and on (no tile leaves at 1.0 dB, so both run 49 bodies) and K4 BP with
+  early exit off;
+- K6 (phase 17): one 256 MB pass, and ``copy_`` of the same buffers.
+
+The package is imported from the checkout ``--tree`` (default: the one this
+file is in), put first on ``sys.path``, and only entry points that the
+package has had since its benchmark matrix are used, so two checkouts can be
+timed one after the other in one run on one card:
+
+  python3 informationbottleneckdecodingldpc_torch/cli/kernel_times.py \\
+      [--tree build/parent] [--out PATH] [--reps 5]
+
+Prints and writes one JSON object: ms per kernel and setting, the mean
+iterations of each decode and the card's name and power limit. Without a
+CUDA device it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+TREE = Path(__file__).resolve().parents[2]
+SEED = 99
+COPY_BYTES = 256 * 1024 * 1024  # K6's buffer (utils/roofline.py)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` calls after a warm-up."""
+    fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def run(reps: int) -> dict:
+    """The times, with the package of the checkout first on ``sys.path``."""
+    from informationbottleneckdecodingldpc_torch.channel import (
+        build_quantizer_tables,
+        device_tables,
+        sample_clusters_from_uniform,
+        sample_llrs_from_uniform,
+        sigma2_from_ebn0_db,
+    )
+    from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
+    from informationbottleneckdecodingldpc_torch.kernels import (
+        FusedFloatDecoder,
+        HBMFloatDecoder,
+        HBMFusedIBDecoder,
+        hbm_copy,
+    )
+    from informationbottleneckdecodingldpc_torch.models import get_model
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import CONFIG_DIR
+
+    dev = torch.device("cuda")
+
+    def inputs(layout, ebn0_db: float, batch: int, levels: int, clusters: bool = False):
+        """Quantized LLRs (or cluster indices) of an all-zeros codeword batch."""
+        sigma2 = float(sigma2_from_ebn0_db(ebn0_db, layout.code_rate))
+        shape = (layout.n_vars, batch)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        u = torch.rand(shape, generator=g, device=dev)
+        zeros = torch.zeros(shape, dtype=torch.int32, device=dev)
+        qt = device_tables(build_quantizer_tables(sigma2, 3.0, levels, 2000), dev)
+        if clusters:
+            return sample_clusters_from_uniform(qt.cdf, u, zeros)
+        return sample_llrs_from_uniform(qt.cdf, qt.llrs, u, zeros)
+
+    wlan = get_model("wlan-1296").make_layout()
+    regular = get_model("regular-3-6-8000").make_layout()
+    dvbs2 = get_model("dvbs2-64800").make_layout()
+    tables = DecoderConfig.load(str(CONFIG_DIR / "dvbs2_T16_0.6.npz")).tables
+    wlan_llrs = inputs(wlan, 2.0, 4096, 16)
+    regular_llrs = inputs(regular, 2.0, 1024, 16)
+    dv_llrs = inputs(dvbs2, 1.0, 1024, 16)
+    dv_clusters = inputs(dvbs2, 1.0, 1024, tables.cardinality_t_channel, clusters=True)
+    decoders = {}
+    for rule in ("minsum", "bp"):
+        for early_exit, tag in ((False, ""), (True, "_early_exit")):
+            decoders[f"k2_{rule}{tag}"] = (
+                FusedFloatDecoder(wlan, rule, max_iters=50, early_exit=early_exit), wlan_llrs
+            )
+    for early_exit, tag in ((False, ""), (True, "_early_exit")):
+        decoders[f"k2_regular_minsum{tag}"] = (
+            FusedFloatDecoder(regular, "minsum", max_iters=50, early_exit=early_exit),
+            regular_llrs,
+        )
+    decoders.update({
+        "k3": (HBMFusedIBDecoder(dvbs2, tables, early_exit=False), dv_clusters),
+        "k4_minsum": (HBMFloatDecoder(dvbs2, "minsum", max_iters=50, early_exit=False), dv_llrs),
+        "k4_minsum_early_exit": (HBMFloatDecoder(dvbs2, "minsum", max_iters=50), dv_llrs),
+        "k4_bp": (HBMFloatDecoder(dvbs2, "bp", max_iters=50, early_exit=False), dv_llrs),
+    })
+    ms, iterations = {}, {}
+    for name, (dec, x) in decoders.items():
+        ms[name] = cuda_ms(lambda: dec(x), reps)
+        iterations[name] = float(dec(x).iterations)
+        print(f"{name}: {ms[name]:.4f} ms, mean iterations {iterations[name]:.3f}", flush=True)
+    src = torch.arange(COPY_BYTES // 4, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    for name, fn in (("k6", lambda: hbm_copy.copy(src, dst)), ("copy_", lambda: dst.copy_(src))):
+        ms[name] = cuda_ms(fn, reps)
+        if not torch.equal(dst, src):
+            raise AssertionError(f"{name} did not copy the buffer")
+        print(f"{name}: {ms[name]:.4f} ms per 256 MB pass", flush=True)
+    return {"reps": reps, "ms": ms, "mean_iterations": iterations}
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
+    )
+    p.add_argument("--tree", default=str(TREE))
+    p.add_argument("--out", default="")
+    p.add_argument("--reps", type=int, default=5)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_times runs on a CUDA device only")
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    out = {"tree": str(tree), **run(args.reps), "card": nvidia_smi()}
+    print(json.dumps(out), flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 // Hopper (sm_90) asynchronous bulk copies and transaction barriers, for the
 // kernels that stage device memory through shared memory with the Tensor
 // Memory Accelerator's non-tensor form, cp.async.bulk: the read probes
-// (bulk_read.cu), the per-copy cost probes (bulk_copies.cu), and later the
-// staged K3/K4.
+// (bulk_read.cu), the per-copy cost probes (bulk_copies.cu), the stage
+// skeleton (stage_chunks.cu) and the device-memory copy K6 (hbm_copy.cu).
 //
 // A global -> shared copy is issued by one thread and completes on an
 // mbarrier in shared memory: the issuing thread first adds the bytes it
@@ -81,6 +81,13 @@ __device__ __forceinline__ void commit() {
 // Wait until every committed bulk group has been written to global memory.
 __device__ __forceinline__ void wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Wait until at most N of the committed bulk groups are still reading their
+// shared-memory sources: the sources of the others may be written again.
+template <int N>
+__device__ __forceinline__ void wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void fence_proxy_async() {

@@ -3,9 +3,11 @@
 // views in device memory).
 //
 // A view is float32 [row][bt]: row r of codeword column c at r * bt + c, so a
-// caller hands in the base of one tile's slab wherever it lives. A pass walks
-// its (node, codeword) items from `first` in steps of `step`: K2 passes
-// (threadIdx.x, blockDim.x), K4 a grid-wide stride.
+// caller hands in the base of one tile's slab wherever it lives. The folds
+// take one node's messages in registers; K2 and K4 walk their items each
+// their own way. The syndrome-only pass below (K4's, and K2's after its
+// last body) and K4's decision pass walk the (node, codeword) items of one
+// tile from `first` in steps of `step`.
 //
 // Semantics match decode/float_common.py (the plain twin) and the JAX
 // decoders: the same fold orders, and every add, subtract and multiply is an
@@ -61,12 +63,15 @@ __device__ __forceinline__ float boxplus(float a, float b) {
 // (smallest other magnitude). The sign product is taken as the parity of the
 // other negative inputs, or 0 when another input is 0 (sign(0) = 0): the
 // same values as float_ops.py's prefix/suffix products. The magnitude is
-// min2 where |m_j| == min1, else min1 (min2 == min1 on ties).
+// min2 where |m_j| == min1, else min1 (min2 == min1 on ties). Returns the
+// parity of the negative inputs: 1 for a check the inputs' hard bits leave
+// unsatisfied.
 template <int D>
-__device__ __forceinline__ void minsum_fold(const float (&m)[D], float (&out)[D]) {
+__device__ __forceinline__ int minsum_fold(const float (&m)[D], float (&out)[D]) {
   if constexpr (D == 2) {
     out[0] = m[1];
     out[1] = m[0];
+    return (m[0] < 0.f) ^ (m[1] < 0.f);
   } else {
     float min1 = fabsf(m[0]);
     float min2 = INFINITY;
@@ -87,11 +92,13 @@ __device__ __forceinline__ void minsum_fold(const float (&m)[D], float (&out)[D]
                           : ((negs ^ int(m[j] < 0.f)) ? -1.f : 1.f);
       out[j] = __fmul_rn(s, fabsf(m[j]) == min1 ? min2 : min1);
     }
+    return negs;
   }
 }
 
-// BP check update with the inputs in registers: the box-plus sequence of
-// cn_bp_group below, operation for operation.
+// BP check update with the inputs in registers: the pairwise box-plus fold
+// of float_ops.py associative_leave_one_out, operation for operation (K2's
+// cn_bp_item computes the same sequence with the inputs read twice).
 template <int D>
 __device__ __forceinline__ void bp_fold(const float (&m)[D], float (&out)[D]) {
   if constexpr (D == 2) {
@@ -121,131 +128,6 @@ __device__ __forceinline__ float vn_total(float ch, const float (&m)[D]) {
 #pragma unroll
   for (int k = 1; k < D; ++k) s = __fadd_rn(s, m[k]);
   return __fadd_rn(ch, s);
-}
-
-template <int D>
-__device__ void cn_minsum_group(const float* __restrict__ src, float* __restrict__ dst,
-                                const int32_t* __restrict__ route, int off, int n,
-                                int bt, int first, int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    float m[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-    float out[D];
-    minsum_fold<D>(m, out);
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      dst[__ldg(&route[off + k * n + node]) * bt + c] = out[k];
-  }
-}
-
-// BP check update: the pairwise box-plus fold of float_ops.py
-// associative_leave_one_out. suf[k] = fold(m_k..m_{D-1}) = m_k [+] suf[k+1];
-// out_0 = suf[1], out_j = pre_{j-1} [+] suf[j+1], out_{D-1} = pre_{D-2},
-// with pre_j = pre_{j-1} [+] m_j. Inputs are read again from the view in the
-// forward walk, so only the suffixes live in registers.
-template <int D>
-__device__ void cn_bp_group(const float* __restrict__ src, float* __restrict__ dst,
-                            const int32_t* __restrict__ route, int off, int n, int bt,
-                            int first, int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const float* in = src + (off + node) * bt + c;  // message k at in[k * n * bt]
-    const int32_t* rt = route + off + node;         // its route at rt[k * n]
-    if constexpr (D == 2) {
-      const float m0 = in[0], m1 = in[n * bt];
-      dst[__ldg(&rt[0]) * bt + c] = m1;
-      dst[__ldg(&rt[n]) * bt + c] = m0;
-    } else {
-      float suf[D];
-      suf[D - 1] = in[(D - 1) * n * bt];
-#pragma unroll
-      for (int k = D - 2; k >= 1; --k) suf[k] = boxplus(in[k * n * bt], suf[k + 1]);
-      dst[__ldg(&rt[0]) * bt + c] = suf[1];
-      float pre = in[0];
-#pragma unroll
-      for (int j = 1; j < D - 1; ++j) {
-        dst[__ldg(&rt[j * n]) * bt + c] = boxplus(pre, suf[j + 1]);
-        pre = boxplus(pre, in[j * n * bt]);
-      }
-      dst[__ldg(&rt[(D - 1) * n]) * bt + c] = pre;
-    }
-  }
-}
-
-// Variable update: total = ch + ((m0 + m1) + m2 ...), out_j =
-// clip(total - m_j); degree 1 forwards clip(ch).
-template <int D>
-__device__ void vn_group(const float* __restrict__ src, float* __restrict__ dst,
-                         const float* __restrict__ chg, const int32_t* __restrict__ route,
-                         int off, int n, int node_off, int bt, int first, int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const float ch = chg[(node_off + node) * bt + c];
-    if constexpr (D == 1) {
-      dst[__ldg(&route[off + node]) * bt + c] = clip_llr(ch);
-    } else {
-      float m[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      const float total = vn_total<D>(ch, m);
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[off + k * n + node]) * bt + c] = clip_llr(__fsub_rn(total, m[k]));
-    }
-  }
-}
-
-#define FLOAT_DEGREES_2_TO_16(X) \
-  X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
-#define FLOAT_DEGREES_1_TO_16(X) X(1) FLOAT_DEGREES_2_TO_16(X)
-
-// CN leave-one-out of every check group, src (CN view) -> dst (VN view).
-template <int RULE>
-__device__ void cn_pass(const Graph& g, const float* src, float* dst, int first, int step) {
-  for (int k = 0; k < g.n_cn_groups; ++k) {
-    const int off = g.cn_groups[3 * k], n = g.cn_groups[3 * k + 1];
-    switch (g.cn_groups[3 * k + 2]) {
-#define FLOAT_CN_CASE(D)                                                   \
-  case D:                                                                  \
-    if constexpr (RULE == kMinSum)                                         \
-      cn_minsum_group<D>(src, dst, g.cn_route, off, n, g.bt, first, step); \
-    else                                                                   \
-      cn_bp_group<D>(src, dst, g.cn_route, off, n, g.bt, first, step);     \
-    break;
-      FLOAT_DEGREES_2_TO_16(FLOAT_CN_CASE)
-#undef FLOAT_CN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-// VN update of every variable group with the channel LLRs `chg` ([n_vars][bt],
-// group order), src (VN view) -> dst (CN view).
-__device__ inline void vn_pass(const Graph& g, const float* src, float* dst,
-                               const float* chg, int first, int step) {
-  for (int k = 0; k < g.n_vn_groups; ++k) {
-    const int off = g.vn_groups[4 * k], n = g.vn_groups[4 * k + 1];
-    const int node_off = g.vn_groups[4 * k + 3];
-    switch (g.vn_groups[4 * k + 2]) {
-#define FLOAT_VN_CASE(D)                                                              \
-  case D:                                                                             \
-    vn_group<D>(src, dst, chg, g.vn_route, off, n, node_off, g.bt, first, step);      \
-    break;
-      FLOAT_DEGREES_1_TO_16(FLOAT_VN_CASE)
-#undef FLOAT_VN_CASE
-      default:
-        __trap();
-    }
-  }
 }
 
 // Per codeword, the number of checks whose inputs in A hold an odd count of

@@ -3,7 +3,9 @@
 Port of ``kernels/float_fused.py`` (``FusedFloatDecoder``). For a CUDA tensor
 the decoder launches the hand-written kernel ``csrc/float_fused.cu`` (one CTA
 per tile of ``batch_tile`` codewords, both float32 message views in shared
-memory, early exit per tile); for a CPU tensor it runs the plain twin
+memory, early exit per tile; a body is a CN pass that also takes the
+syndrome of its inputs and a VN pass that also writes the decision); for a
+CPU tensor it runs the plain twin
 :func:`float_decode_tiled`, which applies the whole-batch decoder to each
 zero-padded tile. No CUDA tensor ever reaches the twin, and a failed build
 or launch raises.
@@ -30,6 +32,9 @@ from .ib_lut_fused import (
 )
 
 MAX_DEGREE = 16  # kMaxDegree in csrc/float_fused.cu
+# kThreads per rule: a CTA runs (THREADS[rule] // batch_tile) * batch_tile
+# threads, so each keeps one codeword column for the whole decode.
+THREADS = {"minsum": 1024, "bp": 640}
 # Small codes would fit a hundred codewords per CTA; 32 keeps batches of a
 # few thousand spread over all 132 SMs.
 MAX_BATCH_TILE = 32
@@ -39,9 +44,9 @@ DECODERS = {"minsum": min_sum_decode, "bp": belief_propagation_decode}
 
 def shared_bytes(layout: DecodeLayout, batch_tile: int) -> int:
     """Shared memory of one CTA; mirrors ``shared_bytes`` in the .cu file:
-    per-codeword unsat counts (two int buffers), then the CN and VN views
-    and the channel LLRs as float32."""
-    return 2 * 4 * batch_tile + 4 * (2 * layout.n_edges + layout.n_vars) * batch_tile
+    per-codeword unsat counts (int32), then the CN and VN views and the
+    channel LLRs as float32."""
+    return 4 * batch_tile + 4 * (2 * layout.n_edges + layout.n_vars) * batch_tile
 
 
 def pick_float_batch_tile(layout: DecodeLayout) -> int:
@@ -147,13 +152,18 @@ class FusedFloatDecoder:
         batch = ch.shape[1]
         a = self._args(device)
         out = torch.empty((lay.n_vars, batch), dtype=torch.float32, device=device)
+        tiles = -(-batch // self.batch_tile)
+        totals = torch.empty(
+            tiles * lay.n_vars * self.batch_tile, dtype=torch.float32, device=device
+        )
         unsat = torch.empty(batch, dtype=torch.int32, device=device)
         iters = torch.empty(batch, dtype=torch.int32, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             _library().decode(
                 RULES[self.rule],
-                ch.data_ptr(), out.data_ptr(), unsat.data_ptr(), iters.data_ptr(),
+                ch.data_ptr(), out.data_ptr(), totals.data_ptr(),
+                unsat.data_ptr(), iters.data_ptr(),
                 a["seed_var"].data_ptr(), a["node_var"].data_ptr(),
                 a["cn_route"].data_ptr(), a["vn_route"].data_ptr(),
                 a["cn_groups"].data_ptr(), a["vn_groups"].data_ptr(),
@@ -175,4 +185,7 @@ def _library():
     from ._build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    return KernelLibrary("float_fused", [i] + [p] * 10 + [i] * 8 + [p], MAX_DEGREE)
+    return KernelLibrary(
+        "float_fused", [i] + [p] * 11 + [i] * 8 + [p], MAX_DEGREE,
+        threads_minsum=THREADS["minsum"], threads_bp=THREADS["bp"],
+    )

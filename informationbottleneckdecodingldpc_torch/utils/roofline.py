@@ -57,12 +57,23 @@ DATA_SHEET_OPS_PER_S = {
 
 MINSUM_OPS_PER_CN_EDGE = 4  # abs, min tracking, min1/min2 select, sign
 MINSUM_OP_ALU_OPS = 7  # the operations of sign(a) sign(b) min(|a|, |b|)
-# One application of each float op of ops/float_ops.py, by operation type:
-# box-plus is 19 elementwise operations, its two exponentials also on the
-# special-function unit.
+# One box-plus as nvcc compiles it for sm_90a (csrc/float_groups.cuh
+# boxplus: CUDA's libm expf and log1pf, as torch's kernels call them, so K2
+# and K4 equal their twins): the FP32-pipe instructions (float add,
+# multiply, fused multiply-add, compare, select and min/max; integer and
+# branch instructions are left out) and special-function (MUFU)
+# instructions it runs on finite inputs. Counted by cuobjdump -sass of K5c's
+# box-plus chain loop (csrc/peaks.cu float_pair_kernel<BoxPlus>: 256
+# box-plus a trip, 54.125 and 2 each, 78.6 instructions in all) as built
+# for an NVIDIA H100 80GB HBM3; chip_smoke.py phase 16 counts them again. The elementwise reading, 19 operations and 2 exponentials, left
+# K5c's chain at 15.6% of its bound.
+FP32_OPCODES = ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX")
+SFU_OPCODES = ("MUFU",)
+BOXPLUS_SASS = {"fp32": 54, "sfu": 2}
+# One application of each float op of ops/float_ops.py, by operation type.
 FLOAT_OP_COUNTS = {
     "minsum_op": {"fp32": MINSUM_OP_ALU_OPS},
-    "boxplus": {"fp32": 19, "sfu": 2},
+    "boxplus": BOXPLUS_SASS,
     "float_mix": {"fp32": 3},  # add, then clip at +-150
     "min": {"fp32": 1},
 }

@@ -291,7 +291,7 @@ def test_fused_float_twin_matches_jax_kernel(qc96, rule, batch, tile, max_iters,
 
 def test_float_batch_tile_fits_shared_memory(wlan, qc96):
     layout = wlan[0]
-    assert shared_bytes(layout, 1) == 8 + (2 * 4644 + 1296) * 4
+    assert shared_bytes(layout, 1) == 4 + (2 * 4644 + 1296) * 4
     assert pick_float_batch_tile(layout) == 5
     assert shared_bytes(layout, 5) <= 232_448 < shared_bytes(layout, 6)
     assert pick_float_batch_tile(qc96[0]) == 32

@@ -39,7 +39,7 @@ from informationbottleneckdecodingldpc_tpu.decode import (
 from informationbottleneckdecodingldpc_tpu.kernels.float_hbm import (
     HBMFloatDecoder as JaxHBMFloatDecoder,
 )
-from informationbottleneckdecodingldpc_torch.cli import hbm_times
+from informationbottleneckdecodingldpc_torch.cli import kernel_times
 from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
 from informationbottleneckdecodingldpc_torch.decode import DecodeLayout
 from informationbottleneckdecodingldpc_torch.decode.common import (
@@ -312,9 +312,9 @@ def test_simulator_on_a_card_refuses_the_tile_when_built(qc96, monkeypatch):
     assert sim.fused_decoder.batch_tile == 200
 
 
-def test_hbm_times_needs_a_card():
+def test_kernel_times_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA device only"):
-        hbm_times.main([])
+        kernel_times.main([])
 
 
 def test_tile_scratch_k4_has_two_vn_views(qc96):

@@ -156,8 +156,8 @@ def test_copy_plain_and_wrappers_refuse_what_the_kernels_do_not_take():
     hbm_copy.copy(src, dst, passes=2)
     assert torch.equal(src, dst) and hbm_copy.launches["hbm_copy"] == 0
     meta = torch.zeros(5, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="16-byte"):
-        hbm_copy.copy(meta, torch.zeros_like(meta))
+    with pytest.raises(ValueError, match="16-byte"):  # any size, but aligned
+        hbm_copy.copy(meta[1:], torch.zeros_like(meta)[1:])
     with pytest.raises(ValueError, match="multiple of 256"):
         k5.float_chain("min", torch.zeros((2 * k5.CHAINS, 100), device="meta"), 1)
     table = torch.zeros((k5.SLOTS, 32, 32), dtype=torch.uint8, device="meta")
