@@ -12,13 +12,20 @@ entry point; and the per-codeword random planes of every Monte-Carlo step
 through the Philox kernel.
 
 1. the card exists (else this raises); its name and power limit;
-2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it);
-3. K1 against its plain PyTorch twin on the same CUDA inputs, bit-exact:
-   |T|=16 at 0.8 and 6.0 dB with early exit on and off, |T|=32 fixed;
+2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it):
+   its threads per CTA, registers and spills of each instantiation;
+3. K1 against its plain PyTorch twin on the same CUDA inputs, bit-exact
+   (outputs, unsatisfied counts, mean iterations): |T|=16 at 0.8 and 6.0 dB
+   with early exit on and off, |T|=32 at 0.8 dB fixed and at 6.0 dB with
+   early exit, a batch of 500 (the last 16-codeword tile padded), no
+   alignment, three tiles that leave after an even number of bodies, after
+   an odd one and not at all (drawn at fixed levels, each tile's count from
+   the twin), and i_max 1, 2 and 3 at 8.0 dB with early exit on and off;
 4. the headline simulation: coded Mbit/s, one kernel launch per Monte-Carlo
    step, FER and BER at 0.8 dB inside bands around the JAX package's
    reference curve, mean iterations at 0.8 and 2.4 dB;
-5. one decode at batch 4096 by K1 and by the twin, timed;
+5. one decode at batch 4096 by K1 (early exit on and off) and by the twin,
+   timed;
 6. K2 built from ``csrc/float_fused.cu``: build time, the threads per CTA
    of each rule, registers and spills of each rule's kernel;
 7. K2 against its plain twin on the same CUDA inputs, both rules, WLAN,
@@ -648,7 +655,12 @@ def main() -> None:
         ib_lut_decode_tiled,
     )
     from informationbottleneckdecodingldpc_torch.cli import bench_matrix
-    from informationbottleneckdecodingldpc_torch.kernels import float_fused, hbm_copy, philox_planes
+    from informationbottleneckdecodingldpc_torch.kernels import (
+        float_fused,
+        hbm_copy,
+        ib_lut_fused,
+        philox_planes,
+    )
     from informationbottleneckdecodingldpc_torch.kernels import peaks as k5
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
@@ -684,8 +696,12 @@ def main() -> None:
         probe_builds = {n: builds[n].result()[1] for n in PROBE_LIBRARIES}
         late_builds = {n: builds[n].result()[1] for n in LATE_LIBRARIES}
         all_loaded = time.perf_counter() - t0
+    k1_names = {f"kernelILb{r}ELi{v}E": f"{'shared' if r else 'device'} routes, V={v}"
+                for r in (0, 1) for v in (1, 4)}
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
-          f"{k1_loaded:.2f} s; {ptxas_lines(build['log'])}", flush=True)
+          f"{k1_loaded:.2f} s; threads per CTA at V columns per thread "
+          f"{json.dumps(ib_lut_fused.THREADS)}; "
+          f"{ptxas_lines(build['log'], k1_names)}", flush=True)
     lap(2)
 
     # -- 3: kernel vs plain twin -----------------------------------------
@@ -709,20 +725,57 @@ def main() -> None:
         return sample_clusters_from_uniform(qt.cdf, u, torch.zeros_like(u, dtype=torch.int32))
 
     max_abs_err = 0
-    cases = [
-        ("wlan_T16_0.8", 0.8, True),
-        ("wlan_T16_0.8", 0.8, False),
-        ("wlan_T16_0.8", 6.0, True),
-        ("wlan_T16_0.8", 6.0, False),
-        ("wlan_T32_0.6", 0.8, False),
+
+    def ib_odd_even_tiles(cfg, levels, bt: int, imax: int, seed: int):
+        """Three tiles of ``bt`` codewords for K1's exit parity: the first drawn
+        at ``levels`` (dB, tried in turn, each try a new seed) that the twin
+        leaves after an even and after an odd number of bodies, then one at
+        0.8 dB that runs to the end; and each tile's body count."""
+        twin = FusedIBDecoder(layout, cfg.tables, max_iters=imax)
+        bodies = lambda x: int(ib_lut_decode_tiled(layout, twin.trellis(dev), x, bt, imax).iterations)
+        found, tried = {}, []
+        for j, db in enumerate(levels * 8):
+            x = clusters(cfg, db, bt, seed=seed + j)
+            b = bodies(x)
+            tried.append(b)
+            if b < imax - 1:
+                found.setdefault(b % 2, (x, b))
+            if len(found) == 2:
+                break
+        else:
+            raise AssertionError(f"no K1 tiles at {levels} dB leave after both odd and even "
+                                 f"bodies: {tried}")
+        last = clusters(cfg, 0.8, bt, seed=seed + 99)
+        tiles = [found[0], found[1], (last, bodies(last))]
+        if tiles[2][1] != imax - 1:
+            raise AssertionError("the 0.8 dB tile left early")
+        return torch.cat([x for x, _ in tiles], 1), [b for _, b in tiles]
+
+    cases = [  # (tables, Eb/N0 (per tile), batch, max_iters, early exit, alignment)
+        ("wlan_T16_0.8", 0.8, 512, None, True, True),
+        ("wlan_T16_0.8", 0.8, 512, None, False, True),
+        ("wlan_T16_0.8", 6.0, 512, None, True, True),
+        ("wlan_T16_0.8", 6.0, 512, None, False, True),
+        ("wlan_T32_0.6", 0.8, 512, None, False, True),
+        ("wlan_T32_0.6", 6.0, 512, None, True, True),
+        ("wlan_T16_0.8", 6.0, 500, None, True, True),  # the last tile padded
+        ("wlan_T16_0.8", 6.0, 512, None, True, False),
+        ("wlan_T16_0.8", (6.0, 5.0, 4.0, 3.0), None, None, True, True),
+        *(("wlan_T16_0.8", 8.0, 512, imax, ee, True) for imax in (1, 2, 3) for ee in (True, False)),
     ]
-    for k, (name, ebn0, early_exit) in enumerate(cases):
+    for k, (name, ebn0, batch, imax, early_exit, matching) in enumerate(cases):
         cfg = configs[name]
-        ch = clusters(cfg, ebn0, 512, seed=k)
-        dec = FusedIBDecoder(layout, cfg.tables, early_exit=early_exit)
+        dec = FusedIBDecoder(layout, cfg.tables, max_iters=imax, early_exit=early_exit,
+                             use_matching=matching)
+        label = f"{ebn0} dB"
+        if isinstance(ebn0, tuple):
+            ch, bodies = ib_odd_even_tiles(cfg, ebn0, dec.batch_tile, dec.imax, seed=300 + k)
+            label = f"per-tile levels {ebn0} dB, tiles leave after {bodies} bodies,"
+        else:
+            ch = clusters(cfg, ebn0, batch, seed=k)
         got = dec(ch)
         ref = ib_lut_decode_tiled(
-            layout, dec.trellis(dev), ch, dec.batch_tile, early_exit=early_exit
+            layout, dec.trellis(dev), ch, dec.batch_tile, max_iters=imax, early_exit=early_exit
         )
         torch.cuda.synchronize()
         err = int((got.outputs - ref.outputs).abs().max())
@@ -733,15 +786,15 @@ def main() -> None:
             and float(got.iterations) == float(ref.iterations)
         ):
             raise AssertionError(
-                f"K1 disagrees with its twin on {name} {ebn0} dB early_exit="
-                f"{early_exit}: max |out diff| {err}, iterations "
+                f"K1 disagrees with its twin on {name} {label} max_iters {imax} early_exit="
+                f"{early_exit} matching={matching}: max |out diff| {err}, iterations "
                 f"{float(got.iterations)} vs {float(ref.iterations)}"
             )
         if early_exit and ebn0 == 6.0 and float(got.iterations) >= 49.0:
             raise AssertionError("early exit did not fire at 6.0 dB")
-        print(f"[3 exact] {name} {ebn0} dB early_exit={early_exit} batch 512 "
-              f"tile {dec.batch_tile}: outputs, unsatisfied and mean iterations "
-              f"{float(got.iterations):.4f} equal", flush=True)
+        print(f"[3 exact] {name} {label} max_iters {dec.imax} early_exit={early_exit} "
+              f"matching={matching} batch {ch.shape[1]} tile {dec.batch_tile}: outputs, "
+              f"unsatisfied and mean iterations {float(got.iterations):.4f} equal", flush=True)
     lap(3)
 
     # -- 4: headline main path -------------------------------------------
@@ -795,8 +848,11 @@ def main() -> None:
     if err or not torch.equal(got.unsatisfied, ref.unsatisfied):
         raise AssertionError(f"K1 disagrees with its twin at batch 4096 ({err})")
     k1_iters = float(got.iterations)
-    print(f"[5 times] batch 4096 decode: K1 {ms:.3f} ms, plain twin "
-          f"{plain_ms:.1f} ms on {card}; mean iterations {k1_iters:.3f}", flush=True)
+    fixed = FusedIBDecoder(layout, cfg.tables, early_exit=False)
+    fixed_ms = cuda_ms(lambda: fixed(ch))
+    print(f"[5 times] batch 4096 decode at 0.8 dB: K1 {ms:.3f} ms with early exit (mean "
+          f"iterations {k1_iters:.3f}), {fixed_ms:.3f} ms without (49 bodies), plain twin "
+          f"{plain_ms:.1f} ms on {card}", flush=True)
     lap(5)
 
     # -- 6: K2 build ------------------------------------------------------

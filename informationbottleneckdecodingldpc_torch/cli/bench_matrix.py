@@ -12,9 +12,14 @@ the JAX script's layout (``scenarios`` and ``roofline``) and records the card
 ``results/BENCH_MATRIX.json`` (TPU numbers) is never written. There is no CPU
 measurement: without a CUDA device the run raises.
 
+With ``--profile``, one more dispatch of each named cell runs under
+``torch.profiler``: its device time per kernel, and its decode and idle
+shares of the median dispatch (``utils/benchmarks.py`` ``profile_dispatch``).
+
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.bench_matrix \\
-      [--out results/torch/BENCH_MATRIX.json] [--only wlan_ib_fused,dvbs2_minsum]
+      [--out results/torch/BENCH_MATRIX.json] [--only wlan_ib_fused,dvbs2_minsum] \\
+      [--profile wlan_ib_fused]
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from pathlib import Path
 import torch
 
 from ..kernels.peaks import FLOAT_OPS, LOOKUPS
-from ..utils.benchmarks import MATRIX, build_matrix_sim, measure_sim
+from ..utils.benchmarks import MATRIX, build_matrix_sim, measure_sim, profile_dispatch
 from ..utils.peaks import _CACHE, primitive_peak
 from ..utils.roofline import cell_roofline, traffic_bandwidth
 
@@ -64,8 +69,9 @@ def card() -> dict:
     }
 
 
-def run(names: list[str], device: torch.device) -> dict:
-    """Time the cells ``names`` on ``device`` and compute their roofline."""
+def run(names: list[str], device: torch.device, profiled: tuple[str, ...] = ()) -> dict:
+    """Time the cells ``names`` on ``device`` and compute their roofline;
+    profile one dispatch of each cell in ``profiled``."""
     dev_record = card()
     out = {"unit": "coded_bits_per_s", "device": dev_record, "scenarios": {}}
     info, codes = {}, {}
@@ -94,6 +100,12 @@ def run(names: list[str], device: torch.device) -> dict:
         info[name] = (sim.layout, tables, matching)
         print(f"{name}: {bps / 1e6:.2f} Mbit/s coded ({mean_iters:.2f} iterations, "
               f"{sim.backend}, {type(decoder).__name__})", flush=True)
+        if name in profiled:
+            prof = out["scenarios"][name]["profile"] = profile_dispatch(sim, ebn0, bps)
+            top = ", ".join(f"{k[:60]} {v:.3f}" for k, v in list(prof["kernel_ms"].items())[:6])
+            print(f"profile {name}: wall {prof['wall_ms']:.3f} ms per dispatch, decode share "
+                  f"{prof['decode_share']:.1%}, idle share {prof['idle_share']:.1%}; device ms: "
+                  f"{top}", flush=True)
         del sim, decoder
         torch.cuda.empty_cache()
 
@@ -137,6 +149,8 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default=str(DEFAULT_OUT))
     p.add_argument("--only", default="", help="comma-separated cell names")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--profile", default="",
+                   help="comma-separated cells to profile one dispatch of (torch.profiler)")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -145,7 +159,7 @@ def main(argv=None) -> dict:
     unknown = sorted(set(names) - set(MATRIX))
     if unknown:
         raise KeyError(f"unknown cells {unknown}; available: {list(MATRIX)}")
-    out = run(names, device)
+    out = run(names, device, tuple(n for n in args.profile.split(",") if n))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

@@ -1,10 +1,14 @@
-"""Time the decode kernels K2, K3 and K4 and the copy K6 on one CUDA card.
+"""Time the decode kernels K1, K2, K3 and K4 and the copy K6 on one CUDA card.
 
 Each time is the mean of ``--reps`` calls after a warm-up, by CUDA events,
 on the inputs of ``chip_smoke.py``'s timing phases (channel draws from
 ``torch.Generator`` seed 99, 16-level quantized LLRs or clusters, i_max 50,
 default tiles):
 
+- K1 (phase 5): WLAN N=1296 IB |T|=16 (``wlan_T16_0.8``) at batch 4096 and
+  0.8 dB, early exit off and on, and at 2.4 dB with early exit on; WLAN
+  |T|=32 (``wlan_T32_0.6``) at batch 2048 and 0.6 dB; regular (3,6) N=8000
+  (``regular_T16_1.05``, i_max 250, tile 4) at batch 512 and 1.05 dB;
 - K2 (phase 10): WLAN N=1296 at batch 4096 and 2.0 dB, min-sum and BP, early
   exit off (49 bodies) and on; regular (3,6) N=8000 min-sum at batch 1024 and
   2.0 dB (one codeword per CTA), early exit off and on;
@@ -74,6 +78,7 @@ def run(reps: int) -> dict:
     from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
     from informationbottleneckdecodingldpc_torch.kernels import (
         FusedFloatDecoder,
+        FusedIBDecoder,
         HBMFloatDecoder,
         HBMFusedIBDecoder,
         hbm_copy,
@@ -105,6 +110,20 @@ def run(reps: int) -> dict:
     dv_llrs = inputs(dvbs2, 1.0, 1024, 16)
     dv_clusters = inputs(dvbs2, 1.0, 1024, tables.cardinality_t_channel, clusters=True)
     decoders = {}
+    ib = {n: DecoderConfig.load(str(CONFIG_DIR / f"{n}.npz")).tables
+          for n in ("wlan_T16_0.8", "wlan_T32_0.6", "regular_T16_1.05")}
+    for name, lay, cfg, db, batch, early_exit in (
+        ("k1", wlan, "wlan_T16_0.8", 0.8, 4096, False),
+        ("k1_early_exit", wlan, "wlan_T16_0.8", 0.8, 4096, True),
+        ("k1_2.4dB_early_exit", wlan, "wlan_T16_0.8", 2.4, 4096, True),
+        ("k1_t32", wlan, "wlan_T32_0.6", 0.6, 2048, True),
+        ("k1_regular", regular, "regular_T16_1.05", 1.05, 512, True),
+    ):
+        t = ib[cfg]
+        decoders[name] = (
+            FusedIBDecoder(lay, t, early_exit=early_exit),
+            inputs(lay, db, batch, t.cardinality_t_channel, clusters=True),
+        )
     for rule in ("minsum", "bp"):
         for early_exit, tag in ((False, ""), (True, "_early_exit")):
             decoders[f"k2_{rule}{tag}"] = (

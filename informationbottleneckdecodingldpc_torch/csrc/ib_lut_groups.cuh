@@ -1,13 +1,24 @@
 // Node folds of the IB lookup-table decoder, shared by K1 (ib_lut_fused.cu,
 // both views in shared memory) and K3 (ib_lut_hbm.cu, both views in device
-// memory).
+// memory), with K3's decision pass.
 //
 // A view is [row][bt] bytes: row r of codeword column c at r * bt + c, so a
-// caller hands in the base of one tile's slab wherever it lives. A pass walks
-// its (node, codeword) items from `first` in steps of `step`: K1 passes
-// (threadIdx.x, blockDim.x), K3 a grid-wide stride. Every node output is a
-// strict left-to-right fold of its inputs with the own edge removed, step p
-// through pairwise LUT p-1 indexed lut[state][next] (ops/lut_fold.py).
+// caller hands in the base of one tile's slab wherever it lives; each kernel
+// walks its own items (K1 flat over the degree groups, four columns per
+// thread; K3 a grid-wide stride). Every node output is a strict
+// left-to-right fold of its inputs with the own edge removed, step p through
+// pairwise LUT p-1 indexed lut[state][next] (ops/lut_fold.py). The tables
+// are not associative, so outputs share prefixes and no suffix: a degree-d
+// check node makes (d-2)(d+3)/2 lookups, a variable node (d-1)(d+2)/2.
+//
+// What bounds the folds on an NVIDIA H100 80GB HBM3 (700 W): each lookup
+// waits for the one before it, so a thread with one chain in flight leaves
+// the shared-memory pipe idle. K1 with one column per thread ran at a third
+// of its lookup bound (3.1476 ms against 0.9965 ms for a WLAN |T|=16 decode
+// of batch 4096, 49 bodies); with four columns' folds unrolled side by
+// side, 2.4400 ms (cli/kernel_times.py). The byte tables' bank conflicts
+// cost less than the extraction a conflict-free nibble layout adds to every
+// chain step, so the folds read one byte per lookup.
 
 #pragma once
 
@@ -97,59 +108,6 @@ __device__ __forceinline__ void vn_fold(uint8_t ch, const uint8_t (&m)[D], uint8
 }
 
 template <int D>
-__device__ void cn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                         Luts lut, const uint8_t* __restrict__ match_row,
-                         const int32_t* __restrict__ route, int off, int n, int bt,
-                         int thresh, int* unsat, int first, int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    uint8_t m[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-    if (unsat != nullptr) {
-      int parity = 0;
-#pragma unroll
-      for (int k = 0; k < D; ++k) parity ^= int(m[k] < thresh);
-      if (parity) atomicAdd(&unsat[c], 1);
-    }
-    uint8_t out[D];
-    cn_fold<D>(m, out, lut);
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-      dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];
-  }
-}
-
-template <int D>
-__device__ void vn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
-                         const uint8_t* __restrict__ chg, Luts lut,
-                         const uint8_t* __restrict__ match_row,
-                         const int32_t* __restrict__ route, int off, int n,
-                         int node_off, int bt, int first, int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    const uint8_t ch = chg[(node_off + node) * bt + c];
-    if constexpr (D == 1) {
-      // Degree-1 variable nodes forward the channel, unaligned.
-      dst[__ldg(&route[off + node]) * bt + c] = ch;
-    } else {
-      uint8_t m[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) m[k] = src[(off + k * n + node) * bt + c];
-      uint8_t out[D];
-      vn_fold<D>(ch, m, out, lut);
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[off + k * n + node]) * bt + c] = match_row[out[k]];
-    }
-  }
-}
-
-template <int D>
 __device__ void decide_group(const uint8_t* __restrict__ src,
                              const uint8_t* __restrict__ chg, Luts lut,
                              const int32_t* __restrict__ node_var,
@@ -171,53 +129,6 @@ __device__ void decide_group(const uint8_t* __restrict__ src,
 #define IB_DEGREES_2_TO_16(X) \
   X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
 #define IB_DEGREES_1_TO_16(X) X(1) IB_DEGREES_2_TO_16(X)
-
-// CN leave-one-out of every check group, src (CN view) -> dst (VN view),
-// aligned by `match` (rows [d_c_max][T]); with `unsat`, the syndrome of the
-// inputs (hard bit t < T/2) is added per codeword column.
-__device__ inline void cn_pass(const Graph& g, const uint8_t* src, uint8_t* dst,
-                               Luts lut, const uint8_t* match, int* unsat, int first,
-                               int step) {
-  for (int k = 0; k < g.n_cn_groups; ++k) {
-    const int off = g.cn_groups[3 * k], n = g.cn_groups[3 * k + 1];
-    const int d = g.cn_groups[3 * k + 2];
-    const uint8_t* row = match + (d - 1) * g.t_decoder;
-    switch (d) {
-#define IB_CN_CASE(D)                                                               \
-  case D:                                                                           \
-    cn_group<D>(src, dst, lut, row, g.cn_route, off, n, g.bt, g.t_decoder / 2,      \
-                unsat, first, step);                                                \
-    break;
-      IB_DEGREES_2_TO_16(IB_CN_CASE)
-#undef IB_CN_CASE
-      default:
-        __trap();
-    }
-  }
-}
-
-// VN leave-one-out of every variable group with the channel clusters `chg`
-// ([n_vars][bt], group order), src (VN view) -> dst (CN view).
-__device__ inline void vn_pass(const Graph& g, const uint8_t* src, uint8_t* dst,
-                               const uint8_t* chg, Luts lut, const uint8_t* match,
-                               int first, int step) {
-  for (int k = 0; k < g.n_vn_groups; ++k) {
-    const int off = g.vn_groups[4 * k], n = g.vn_groups[4 * k + 1];
-    const int d = g.vn_groups[4 * k + 2], node_off = g.vn_groups[4 * k + 3];
-    const uint8_t* row = match + (d - 1) * g.t_decoder;
-    switch (d) {
-#define IB_VN_CASE(D)                                                                 \
-  case D:                                                                             \
-    vn_group<D>(src, dst, chg, lut, row, g.vn_route, off, n, node_off, g.bt, first,   \
-                step);                                                                \
-    break;
-      IB_DEGREES_1_TO_16(IB_VN_CASE)
-#undef IB_VN_CASE
-      default:
-        __trap();
-    }
-  }
-}
 
 // Decision fold of every variable node, written to outputs[var][batch] at
 // columns b0 + c < batch.

@@ -3,7 +3,10 @@
 Port of ``kernels/ib_lut_fused.py`` (``FusedIBDecoder``). For a CUDA tensor
 the decoder launches the hand-written kernel ``csrc/ib_lut_fused.cu`` (one
 CTA per tile of ``batch_tile`` codewords, both message views in shared
-memory, early exit per tile); for a CPU tensor it runs the plain twin
+memory, early exit per tile; the routes in shared memory as uint16 where
+they fit, :func:`kernel_shared_bytes`; each pass walked flat over its
+degree groups by threads of :func:`columns_per_thread` codeword columns);
+for a CPU tensor it runs the plain twin
 :func:`ib_lut_decode_tiled`, which applies the whole-batch decoder to each
 zero-padded tile. The two agree bit for bit: outputs, per-codeword
 unsatisfied counts and the mean iteration count. No CUDA tensor ever reaches
@@ -28,19 +31,34 @@ from ..decode.ib_lut import DeviceTrellis, ib_lut_decode
 MAX_SHARED_BYTES = 232_448
 MAX_DEGREE = 16  # kMaxDegree in csrc/ib_lut_fused.cu
 BATCH_TILES = (32, 16, 8, 4, 2, 1)
+# K1's threads per CTA at 4 and at 1 codeword columns per thread (kThreads in
+# csrc/ib_lut_fused.cu).
+THREADS = {4: 640, 1: 1024}
 
 
 def _slot(t_channel: int, t_decoder: int) -> int:
     return max(t_channel, t_decoder) ** 2
 
 
+def columns_per_thread(batch_tile: int) -> int:
+    """Codeword columns of one K1 thread: 4 where 4 divides the tile."""
+    return 4 if batch_tile % 4 == 0 else 1
+
+
+def threads_per_cta(batch_tile: int) -> int:
+    """K1's threads per CTA: whole node rows of tile / V threads each."""
+    v = columns_per_thread(batch_tile)
+    lanes = batch_tile // v
+    return THREADS[v] // lanes * lanes
+
+
 def shared_bytes(
     layout: DecodeLayout, batch_tile: int, t_channel: int, t_decoder: int
 ) -> int:
-    """Shared memory of one CTA; mirrors ``shared_bytes`` in the .cu file:
-    per-codeword unsat counts (two int buffers), the CN and VN views and the
-    channel clusters as bytes, one iteration's CN and VN LUTs and alignment
-    rows."""
+    """Shared memory of one CTA before K1's routes (the tile rule);
+    mirrors ``carve_bytes`` in the .cu file: per-codeword unsat counts (two
+    int buffers), the CN and VN views and the channel clusters as bytes, one
+    iteration's CN and VN LUTs and alignment rows."""
     n_cn_slots = max(layout.d_c_max - 2, 1)
     n_vn_slots = layout.d_v_max
     return (
@@ -49,6 +67,21 @@ def shared_bytes(
         + (n_cn_slots + n_vn_slots) * _slot(t_channel, t_decoder)
         + (layout.d_c_max + layout.d_v_max) * t_decoder
     )
+
+
+def kernel_shared_bytes(
+    layout: DecodeLayout, batch_tile: int, t_channel: int, t_decoder: int
+) -> tuple[int, bool]:
+    """K1's own carve, as ``shared_bytes`` in the .cu file: the tile rule's
+    :func:`shared_bytes`, then the routes as uint16 (2-byte aligned) where
+    they fit in :data:`MAX_SHARED_BYTES` and the layout has at most 65536
+    edges. Returns the bytes and whether the routes are in shared memory.
+    The tile rule (:func:`pick_batch_tile`) does not follow it."""
+    carve = shared_bytes(layout, batch_tile, t_channel, t_decoder)
+    routes = -(-carve // 2) * 2 + 4 * layout.n_edges
+    if layout.n_edges <= 65536 and routes <= MAX_SHARED_BYTES:
+        return routes, True
+    return carve, False
 
 
 def pick_batch_tile(
@@ -275,16 +308,30 @@ class FusedIBDecoder:
             match_vn=np.ascontiguousarray(match_vn, dtype=np.uint8),
         )
 
+    def host_arrays(self) -> dict[str, np.ndarray]:
+        """The kernels' arguments as host arrays: :meth:`_host_tables`, the
+        layout, and for K1 the routes as uint16 where the layout has at most
+        65536 edges."""
+        arrays = {**self._host_tables(), **layout_arrays(self.layout)}
+        if self.layout.n_edges <= 65536:
+            arrays["cn_route16"] = arrays["cn_route"].astype(np.uint16)
+            arrays["vn_route16"] = arrays["vn_route"].astype(np.uint16)
+        return arrays
+
     def _args(self, device: torch.device) -> dict:
         if device not in self._kernel_args:
-            self._kernel_args[device] = device_arrays(
-                {**self._host_tables(), **layout_arrays(self.layout)}, device
-            )
+            self._kernel_args[device] = device_arrays(self.host_arrays(), device)
         return self._kernel_args[device]
 
     def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:
         lay = self.layout
         check_channel_input(channel_clusters, torch.int32, lay, "channel clusters")
+        bt = self.batch_tile
+        v = columns_per_thread(bt)
+        if bt // v > THREADS[v]:
+            raise ValueError(
+                f"K1 takes tiles of at most {THREADS[v] * v} codewords at {v} per thread"
+            )
         device = channel_clusters.device
         ch = channel_clusters.contiguous()
         batch = ch.shape[1]
@@ -293,6 +340,7 @@ class FusedIBDecoder:
         unsat = torch.empty(batch, dtype=torch.int32, device=device)
         iters = torch.empty(batch, dtype=torch.int32, device=device)
         t = self.tables
+        route16 = [a[k].data_ptr() if k in a else None for k in ("cn_route16", "vn_route16")]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             _library().decode(
@@ -300,10 +348,10 @@ class FusedIBDecoder:
                 a["cn_tab"].data_ptr(), a["vn_tab"].data_ptr(),
                 a["match_cn"].data_ptr(), a["match_vn"].data_ptr(),
                 a["seed_var"].data_ptr(), a["node_var"].data_ptr(),
-                a["cn_route"].data_ptr(), a["vn_route"].data_ptr(),
+                a["cn_route"].data_ptr(), a["vn_route"].data_ptr(), *route16,
                 a["cn_groups"].data_ptr(), a["vn_groups"].data_ptr(),
                 len(lay.cn_groups), len(lay.vn_groups), lay.n_vars, lay.n_edges,
-                batch, self.batch_tile,
+                batch, bt,
                 t.cardinality_t_channel, t.cardinality_t_decoder,
                 max(lay.d_c_max - 2, 1), lay.d_v_max,
                 _slot(t.cardinality_t_channel, t.cardinality_t_decoder),
@@ -324,4 +372,7 @@ def _library():
     from ._build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
-    return KernelLibrary("ib_lut_fused", [p] * 14 + [i] * 15 + [p], MAX_DEGREE)
+    return KernelLibrary(
+        "ib_lut_fused", [p] * 16 + [i] * 15 + [p], MAX_DEGREE,
+        threads_v4=THREADS[4], threads_v1=THREADS[1],
+    )

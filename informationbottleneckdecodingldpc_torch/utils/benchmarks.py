@@ -166,6 +166,42 @@ def measure_sim(sim, ebn0_db: float) -> tuple[float, float]:
     return bps, sum(iters) / len(iters)
 
 
+# The decode kernels' names: K1, K2 and the passes of K3 and K4.
+DECODE_KERNELS = ("ib_lut_fused_kernel", "float_fused_kernel", "seed_kernel", "cn_kernel",
+                  "vn_kernel", "syndrome_kernel", "decide_kernel")
+
+
+def profile_dispatch(sim, ebn0_db: float, bps: float) -> dict:
+    """Device milliseconds per kernel of one dispatch of a CUDA BERSimulator
+    from ``torch.profiler`` (after an unprofiled one), and the shares of the
+    dispatch's wall time that ``bps`` (:func:`measure_sim_throughput`)
+    implies: the decode share is the decode kernels' time over it, the idle
+    share one less all kernels' time over it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qt = sim.quantizer_for(ebn0_db)
+    sim._step(ebn0_db, 9000 * sim.steps_per_dispatch, qt)
+    torch.cuda.synchronize(sim.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._step(ebn0_db, 9001 * sim.steps_per_dispatch, qt)
+        torch.cuda.synchronize(sim.device)
+    ms = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if us:
+            ms[e.key] = ms.get(e.key, 0.0) + us / 1e3
+    if not ms:
+        raise RuntimeError("the profiler saw no kernel on the card")
+    wall = sim.layout.n_vars * sim.batch_total * sim.steps_per_dispatch / bps * 1e3
+    decode = sum(v for k, v in ms.items() if any(n in k for n in DECODE_KERNELS))
+    return {
+        "wall_ms": wall,
+        "kernel_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
+        "decode_share": decode / wall,
+        "idle_share": 1 - sum(ms.values()) / wall,
+    }
+
+
 def build_matrix_sim(name: str, device: torch.device | str, codes: dict | None = None):
     """The BERSimulator of ``MATRIX[name]`` on ``device`` and its Eb/N0 and
     decoder tables (None for a float decoder). ``codes`` caches each

@@ -1,0 +1,436 @@
+"""The fused IB decoder K1's schedule as a plain per-pass model.
+
+K1 (``csrc/ib_lut_fused.cu``) decodes one tile per CTA. A thread keeps V
+codeword columns (4 where 4 divides the tile, else 1) for the whole decode
+and walks each pass flat over all its degree groups, q nodes at a time.
+The routes are read as uint16 from shared memory where they fit
+(``kernel_shared_bytes``), else as int32; the pairwise tables are one byte
+copy per block, slot l at l * slot, entry (a, b) at a * stride + b (stride
+|T_ch| for the iteration-0 CN tables, |T| otherwise). A body is a VN pass
+and a CN pass that counts the checks of odd input parity per column; with
+early exit the tile leaves after the barrier that follows the CN pass when
+no count is set. The decision folds the channel and every message with the
+VN tables of the last iteration.
+
+:func:`k1_passes` runs that schedule pass by pass, tile by tile, with the
+port's node folds (``ops/lut_fold.py``) reading K1's own table and route
+arrays (``FusedIBDecoder.host_arrays``) through K1's addressing. It must
+equal the plain twin ``ib_lut_decode_tiled``, and on the 96-variable QC code
+the JAX package's ``FusedIBDecoder`` in interpret mode. Inputs are made with
+numpy from a seed; every comparison is exact.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from informationbottleneckdecodingldpc_tpu.codes import TannerGraph
+from informationbottleneckdecodingldpc_tpu.codes.random_codes import (
+    regular_qc_parity_check,
+)
+from informationbottleneckdecodingldpc_tpu.construct import build_decoder_config
+from informationbottleneckdecodingldpc_tpu.decode import (
+    DecodeLayout as JaxLayout,
+    DeviceTrellis as JaxTrellis,
+    ib_lut_decode as jax_ib_lut_decode,
+)
+from informationbottleneckdecodingldpc_tpu.kernels import (
+    FusedIBDecoder as JaxFusedIBDecoder,
+)
+from informationbottleneckdecodingldpc_torch.channel import (
+    build_quantizer_tables,
+    device_tables,
+    sample_clusters_from_uniform,
+    sigma2_from_ebn0_db,
+)
+from informationbottleneckdecodingldpc_torch.construct import (
+    DecoderConfig,
+    TrellisTables,
+)
+from informationbottleneckdecodingldpc_torch.decode import DecodeLayout
+from informationbottleneckdecodingldpc_torch.decode.common import DecodeResult
+from informationbottleneckdecodingldpc_torch.kernels import ib_lut_fused as k1
+from informationbottleneckdecodingldpc_torch.kernels.ib_lut_fused import (
+    FusedIBDecoder,
+    ib_lut_decode_tiled,
+    mean_iterations,
+)
+from informationbottleneckdecodingldpc_torch.models import get_model
+from informationbottleneckdecodingldpc_torch.ops.lut_fold import (
+    cn_lut_leave_one_out,
+    vn_lut_full_fold,
+    vn_lut_leave_one_out,
+)
+
+CONFIGS = "results/configs"
+
+
+# -- the schedule -------------------------------------------------------------
+
+
+def k1_walk(layout, batch_tile: int, kind: str) -> dict[str, np.ndarray]:
+    """K1's nodes of one pass ('cn', 'vn' or 'decide') in the order each
+    thread meets them: per record the thread, its first column c0, the
+    group and the node's index in its group."""
+    v = k1.columns_per_thread(batch_tile)
+    lanes = batch_tile // v
+    threads = k1.threads_per_cta(batch_tile)
+    q = threads // lanes
+    groups = layout.cn_groups if kind == "cn" else layout.vn_groups
+    nodes = np.asarray(
+        [(gi, ln) for gi, g in enumerate(groups) for ln in range(g.num_nodes)], dtype=np.int64
+    )
+    rec = []
+    for t in range(threads):
+        # One division per thread and launch; the nodes step by q, flat
+        # over the groups.
+        mine = np.arange(t // lanes, len(nodes), q)
+        rec.append(np.column_stack([np.full((len(mine), 2), [t, t % lanes * v]), nodes[mine]]))
+    rec = np.concatenate(rec)
+    return dict(thread=rec[:, 0], c0=rec[:, 1], group=rec[:, 2], ln=rec[:, 3])
+
+
+# -- the model ----------------------------------------------------------------
+
+
+class SlotLut:
+    """One pairwise LUT in a slot of K1's shared tables, read with K1's
+    addressing: a * stride + b."""
+
+    def __init__(self, slot: torch.Tensor, stride: int):
+        self.slot, self.stride = slot, stride
+
+    def __getitem__(self, ab):
+        a, b = ab
+        return self.slot[a * self.stride + b]
+
+
+def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
+    """K1's passes in plain torch, one zero-padded tile at a time: the decode
+    result and each tile's passes in order."""
+    lay, bt = dec.layout, dec.batch_tile
+    t = dec.tables
+    T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
+    a = {k: torch.as_tensor(v.astype(np.int64)) for k, v in dec.host_arrays().items()}
+    _, shared_routes = k1.kernel_shared_bytes(lay, bt, Tch, T)
+    if shared_routes:  # the kernel reads the uint16 copies
+        routes = {"cn": a["cn_route16"], "vn": a["vn_route16"]}
+    else:
+        routes = {"cn": a["cn_route"], "vn": a["vn_route"]}
+    v = k1.columns_per_thread(bt)
+    walks = {kind: k1_walk(lay, bt, kind) for kind in ("cn", "vn", "decide")}
+    node_offsets = np.cumsum([0] + [g.num_nodes for g in lay.vn_groups])
+
+    def luts(stage, stride):
+        return [SlotLut(s, stride) for s in stage]
+
+    def records(kind, gi):
+        w = walks[kind]
+        sel = w["group"] == gi
+        ln = torch.as_tensor(w["ln"][sel])
+        cols = torch.as_tensor(w["c0"][sel])[:, None] + torch.arange(v)  # [R, V]
+        return ln, cols
+
+    def cn_pass(src, dst, stage, stride, match, unsat):
+        for gi, g in enumerate(lay.cn_groups):
+            ln, cols = records("cn", gi)
+            rows = [g.offset + k * g.num_nodes + ln for k in range(g.degree)]
+            m = torch.stack([src[r[:, None], cols] for r in rows])  # [d, R, V]
+            if unsat is not None:
+                odd = ((m < T // 2).sum(0) % 2).reshape(-1).to(torch.int32)
+                unsat.index_add_(0, cols.reshape(-1), odd)
+            out = cn_lut_leave_one_out(m, luts(stage[: g.degree - 2], stride))
+            for k, r in enumerate(rows):
+                dst[routes["cn"][r][:, None], cols] = match[g.degree - 1][out[k]]
+
+    def vn_pass(src, dst, chg, stage, match):
+        for gi, g in enumerate(lay.vn_groups):
+            d = g.degree
+            ln, cols = records("vn", gi)
+            ch = chg[(node_offsets[gi] + ln)[:, None], cols]
+            rows = [g.offset + k * g.num_nodes + ln for k in range(d)]
+            m = torch.stack([src[r[:, None], cols] for r in rows])
+            vs = luts(stage[: max(d - 1, 1)], T)
+            out = vn_lut_leave_one_out(ch, m, vs[0], vs[1:])
+            for k in range(d):  # degree 1 forwards the channel, unaligned
+                val = out[k] if d == 1 else match[d - 1][out[k]]
+                dst[routes["vn"][rows[k]][:, None], cols] = val
+
+    def decide(src, chg, stage, b0, batch):
+        out = torch.zeros((lay.n_vars, bt), dtype=torch.int64)
+        for gi, g in enumerate(lay.vn_groups):
+            ln, cols = records("decide", gi)
+            node = node_offsets[gi] + ln
+            ch = chg[node[:, None], cols]
+            m = torch.stack([src[(g.offset + k * g.num_nodes + ln)[:, None], cols]
+                             for k in range(g.degree)])
+            vs = luts(stage[: g.degree], T)
+            out[a["node_var"][node][:, None], cols] = vn_lut_full_fold(ch, m, vs[0], vs[1:])
+        return out
+
+    batch = clusters.shape[1]
+    pad = (-batch) % bt
+    padded = torch.nn.functional.pad(clusters.to(torch.int64), (0, pad))
+    outs, unsats, per_codeword, traces = [], [], [], []
+    for b0 in range(0, batch + pad, bt):
+        x = padded[:, b0 : b0 + bt]
+        A, B = x[a["seed_var"]], torch.zeros((lay.n_edges, bt), dtype=torch.int64)
+        chg = x[a["node_var"]]
+        tc, mc = a["cn_tab"][0], a["match_cn"][0]
+        cn_pass(A, B, tc, Tch, mc, None)
+        tv, mv = a["vn_tab"][0], a["match_vn"][0]  # staged during that pass
+        unsat = torch.zeros((2, bt), dtype=torch.int32)
+        trace, iters = ["cn0"], 0
+        for i in range(dec.imax - 1):
+            tc, mc = a["cn_tab"][i + 1], a["match_cn"][i + 1]
+            vn_pass(B, A, chg, tv, mv)
+            tv, mv = a["vn_tab"][i + 1], a["match_vn"][i + 1]
+            unsat[(i + 1) & 1] = 0
+            cn_pass(A, B, tc, T, mc, unsat[i & 1])
+            trace += ["vn", "cn"]
+            iters = i + 1
+            if dec.early_exit and not bool((unsat[i & 1] > 0).any()):  # the barrier's OR
+                break
+        outs.append(decide(B, chg, tv, b0, batch))
+        unsats.append(torch.ones(bt, dtype=torch.int32) if iters == 0 else unsat[(iters - 1) & 1])
+        per_codeword.append(torch.full((bt,), iters, dtype=torch.int32))
+        traces.append(trace)
+    result = DecodeResult(
+        outputs=torch.cat(outs, dim=1)[:, :batch].to(torch.int32),
+        iterations=mean_iterations(torch.cat(per_codeword)[:batch]),
+        unsatisfied=torch.cat(unsats)[:batch],
+    )
+    return result, traces
+
+
+# -- fixtures -----------------------------------------------------------------
+
+
+def _qc96_tables(t_decoder: int):
+    cfg = build_decoder_config(
+        design_ebn0_db=2.0,
+        cardinality_y_channel=400,
+        cardinality_t_channel=t_decoder,
+        cardinality_t_decoder=t_decoder,
+        i_max=6,
+        d_v=3,
+        d_c=6,
+    )
+    return TrellisTables(**dataclasses.asdict(cfg.tables)), cfg.tables
+
+
+@pytest.fixture(scope="module")
+def qc96():
+    g = TannerGraph.from_check_matrix(regular_qc_parity_check(96, 3, 6, seed=7))
+    return DecodeLayout.from_graph(g), JaxLayout.from_graph(g), {16: _qc96_tables(16)}
+
+
+@pytest.fixture(scope="module")
+def qc96_t32(qc96):
+    return _qc96_tables(32)
+
+
+def _clusters(ebn0_db, t_channel, n_vars, batch, seed):
+    qt = build_quantizer_tables(sigma2_from_ebn0_db(ebn0_db, 0.5), 3.0, t_channel, 400)
+    u = np.random.default_rng(seed).random((n_vars, batch), dtype=np.float32)
+    return sample_clusters_from_uniform(
+        device_tables(qt, "cpu").cdf,
+        torch.as_tensor(u),
+        torch.zeros((n_vars, batch), dtype=torch.int32),
+    )
+
+
+def _same(got, want) -> bool:
+    return (
+        np.array_equal(got.outputs.numpy(), np.asarray(want.outputs))
+        and np.array_equal(got.unsatisfied.numpy(), np.asarray(want.unsatisfied))
+        and float(got.iterations) == float(want.iterations)
+    )
+
+
+def _jax(jlayout, jtables, ch, **kw):
+    return JaxFusedIBDecoder(jlayout, jtables, interpret=True, **kw)(jnp.asarray(ch.numpy()))
+
+
+# -- the model against the twin and the JAX kernel ----------------------------
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("max_iters", [1, 2, 3])
+def test_k1_passes_match_twin_and_jax_kernel_at_the_loop_bounds(qc96, early_exit, max_iters):
+    """i_max 1 (no body: the decision of the iteration-0 CN pass, unsat 1),
+    2 (one body) and 3 (an exit test after each body), on three tiles of 8,
+    the last padded, at a level where tiles leave early."""
+    layout, jlayout, tabs = qc96
+    tables, jtables = tabs[16]
+    ch = _clusters(6.0, 16, layout.n_vars, 20, seed=max_iters)
+    dec = FusedIBDecoder(layout, tables, max_iters=max_iters, early_exit=early_exit, batch_tile=8)
+    got, traces = k1_passes(dec, ch)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 8, max_iters, early_exit))
+    assert _same(got, _jax(jlayout, jtables, ch, max_iters=max_iters, early_exit=early_exit,
+                           batch_tile=8))
+    for trace in traces:
+        assert trace[0] == "cn0" and len(trace) <= 1 + 2 * (max_iters - 1)
+    if max_iters == 1:
+        assert torch.equal(got.unsatisfied, torch.ones(20, dtype=torch.int32))
+
+
+def test_k1_passes_leave_after_odd_even_and_no_bodies(qc96):
+    """Three tiles of 8 drawn so that the twin's per-tile decoders leave
+    after 2 and 3 bodies and run all 5; the model leaves after the same
+    bodies and equals the twin and the JAX kernel."""
+    layout, jlayout, tabs = qc96
+    tables, jtables = tabs[16]
+    ch = torch.cat([_clusters(db, 16, layout.n_vars, 8, seed=s)
+                    for db, s in ((6.0, 0), (6.0, 3), (2.0, 0))], dim=1)
+    dec = FusedIBDecoder(layout, tables, batch_tile=8)
+    got, traces = k1_passes(dec, ch)
+    assert [t.count("vn") for t in traces] == [2, 3, 5]
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 8))
+    assert _same(got, _jax(jlayout, jtables, ch, early_exit=True, batch_tile=8))
+
+
+@pytest.mark.parametrize("batch, batch_tile", [(21, 8), (21, 4), (13, 5), (7, 1)])
+def test_k1_passes_pad_the_last_tile_and_take_one_column_per_thread(qc96, batch, batch_tile):
+    """A padded last tile; tiles that 4 divides take 4 columns per thread,
+    others one."""
+    layout, jlayout, tabs = qc96
+    tables, jtables = tabs[16]
+    ch = _clusters(5.0, 16, layout.n_vars, batch, seed=batch_tile)
+    dec = FusedIBDecoder(layout, tables, batch_tile=batch_tile)
+    got, _ = k1_passes(dec, ch)
+    assert k1.columns_per_thread(batch_tile) == (4 if batch_tile % 4 == 0 else 1)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, batch_tile))
+    assert _same(got, _jax(jlayout, jtables, ch, early_exit=True, batch_tile=batch_tile))
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_k1_passes_with_byte_tables_at_t32(qc96, qc96_t32, early_exit):
+    """|T| = 32 (1 KB table slots). Against the twin and, per tile, the JAX
+    whole-batch decoder (the JAX kernel's interpreter takes minutes at
+    |T| = 32)."""
+    layout, jlayout, _ = qc96
+    tables, jtables = qc96_t32
+    ch = _clusters(5.0, 32, layout.n_vars, 24, seed=5)
+    dec = FusedIBDecoder(layout, tables, early_exit=early_exit, batch_tile=8)
+    got, traces = k1_passes(dec, ch)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 8,
+                                          early_exit=early_exit))
+    jtrellis = JaxTrellis.from_tables(jtables)
+    for t, b0 in enumerate(range(0, 24, 8)):
+        tile = jnp.asarray(ch[:, b0 : b0 + 8].numpy())
+        want = jax_ib_lut_decode(jlayout, jtrellis, tile, early_exit=early_exit)
+        assert np.array_equal(got.outputs[:, b0 : b0 + 8].numpy(), np.asarray(want.outputs))
+        assert np.array_equal(got.unsatisfied[b0 : b0 + 8].numpy(), np.asarray(want.unsatisfied))
+        assert traces[t].count("vn") == int(want.iterations)
+
+
+def test_k1_passes_without_alignment(qc96):
+    layout, jlayout, tabs = qc96
+    tables, jtables = tabs[16]
+    ch = _clusters(5.0, 16, layout.n_vars, 16, seed=11)
+    dec = FusedIBDecoder(layout, tables, use_matching=False, batch_tile=8)
+    got, _ = k1_passes(dec, ch)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 8))
+
+
+@pytest.mark.parametrize(
+    "config, ebn0_db, max_iters, early_exit",
+    [("wlan_T16_0.8", 6.0, 4, True), ("wlan_T16_0.8", 0.8, 3, False), ("wlan_T32_0.6", 0.8, 2, True)],
+)
+def test_k1_passes_on_wlan_at_its_default_tile(config, ebn0_db, max_iters, early_exit):
+    """WLAN at its default tile of 16: 4 columns per thread, 640 threads,
+    the routes uint16 in shared memory; equal to the twin."""
+    layout = get_model("wlan-1296").make_layout()
+    tables = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    dec = FusedIBDecoder(layout, tables, max_iters=max_iters, early_exit=early_exit)
+    assert dec.batch_tile == 16 and k1.threads_per_cta(16) == 640
+    assert k1.kernel_shared_bytes(layout, 16, tables.cardinality_t_channel,
+                                  tables.cardinality_t_decoder)[1]
+    ch = _clusters(ebn0_db, tables.cardinality_t_channel, layout.n_vars, 20, seed=3)
+    got, _ = k1_passes(dec, ch)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 16, max_iters,
+                                          early_exit))
+
+
+def test_k1_passes_on_regular_8000_read_int32_routes():
+    """Regular (3,6) N=8000 at its default tile of 4: the routes do not fit
+    beside the views, so the kernel reads them as int32."""
+    layout = get_model("regular-3-6-8000").make_layout()
+    tables = DecoderConfig.load(f"{CONFIGS}/regular_T16_1.05.npz").tables
+    dec = FusedIBDecoder(layout, tables, max_iters=3, early_exit=True)
+    assert dec.batch_tile == 4
+    assert not k1.kernel_shared_bytes(layout, 4, 16, 16)[1]
+    ch = _clusters(1.2, 16, layout.n_vars, 6, seed=4)
+    got, _ = k1_passes(dec, ch)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 4, 3))
+
+
+# -- the schedule's coverage --------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "model, config, batch_tile",
+    [("wlan-1296", "wlan_T16_0.8", 16), ("regular-3-6-8000", "regular_T16_1.05", 4)],
+)
+@pytest.mark.parametrize("kind", ["cn", "vn", "decide"])
+def test_each_pass_covers_every_node_column_and_output_once(model, config, batch_tile, kind):
+    """Every (node, column) of a pass is one thread's, once; a node's outputs
+    go to every row of its edges, so every (edge, column) of the view the
+    pass writes is written once."""
+    layout = get_model(model).make_layout()
+    w = k1_walk(layout, batch_tile, kind)
+    groups = layout.cn_groups if kind == "cn" else layout.vn_groups
+    v = k1.columns_per_thread(batch_tile)
+    assert v == 4 and k1.threads_per_cta(batch_tile) == 640
+    # A thread keeps its columns: c0 is a function of the thread alone.
+    lanes = batch_tile // v
+    assert np.array_equal(w["c0"], w["thread"] % lanes * v)
+    tables = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    arrays = FusedIBDecoder(layout, tables).host_arrays()
+    route = arrays["cn_route16" if kind == "cn" else "vn_route16"].astype(np.int64)
+    written = np.zeros((layout.n_edges, batch_tile), dtype=np.int64)
+    for gi, g in enumerate(groups):
+        count = np.zeros((g.num_nodes, batch_tile), dtype=np.int64)
+        sel = np.flatnonzero(w["group"] == gi)
+        for ln, c0 in zip(w["ln"][sel], w["c0"][sel]):
+            count[ln, c0 : c0 + v] += 1
+            rows = g.offset + np.arange(g.degree) * g.num_nodes + ln
+            written[route[rows], c0 : c0 + v] += 1
+        assert np.all(count == 1), (g.degree, np.unique(count))
+    if kind != "decide":
+        assert np.all(written == 1)
+    # Each thread's share of the pass differs from another's by one node.
+    per_thread = np.bincount(w["thread"], minlength=k1.threads_per_cta(batch_tile))
+    assert per_thread.max() - per_thread.min() <= 1
+
+
+def test_default_tiles_are_pinned():
+    """The exit granularity: WLAN |T|=16 and 32 at 16 codewords a tile,
+    regular N=8000 at 4; K1's own carve (routes included where they fit)
+    stays inside one CTA's shared memory."""
+    wlan = get_model("wlan-1296").make_layout()
+    reg = get_model("regular-3-6-8000").make_layout()
+    tiles = []
+    for layout, config in ((wlan, "wlan_T16_0.8"), (wlan, "wlan_T32_0.6"),
+                           (reg, "regular_T16_1.05")):
+        t = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+        dec = FusedIBDecoder(layout, t)
+        tiles.append(dec.batch_tile)
+        got, _ = k1.kernel_shared_bytes(layout, dec.batch_tile, t.cardinality_t_channel,
+                                        t.cardinality_t_decoder)
+        assert got <= k1.MAX_SHARED_BYTES
+    assert tiles == [16, 16, 4]
+
+
+@pytest.mark.parametrize("batch_tile, columns, threads", [(16, 4, 640), (4, 4, 640), (8, 4, 640),
+                                                          (32, 4, 640), (5, 1, 1020), (1, 1, 1024)])
+def test_threads_keep_whole_node_rows(batch_tile, columns, threads):
+    """A block holds whole node rows of tile / V threads: V = 4 where 4
+    divides the tile (640 threads at most), else 1 (1024)."""
+    assert k1.columns_per_thread(batch_tile) == columns
+    assert k1.threads_per_cta(batch_tile) == threads
+    assert threads % (batch_tile // columns) == 0
