@@ -13,8 +13,9 @@ the JAX script's layout (``scenarios`` and ``roofline``) and records the card
 measurement: without a CUDA device the run raises.
 
 With ``--profile``, one more dispatch of each named cell runs under
-``torch.profiler``: its device time per kernel, and its decode and idle
-shares of the median dispatch (``utils/benchmarks.py`` ``profile_dispatch``).
+``torch.profiler``: its device time per kernel, its decode and idle shares
+of the median dispatch and its channel input's device time per step
+(``utils/benchmarks.py`` ``profile_dispatch``).
 
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.bench_matrix \\
@@ -103,8 +104,10 @@ def run(names: list[str], device: torch.device, profiled: tuple[str, ...] = ()) 
         if name in profiled:
             prof = out["scenarios"][name]["profile"] = profile_dispatch(sim, ebn0, bps)
             top = ", ".join(f"{k[:60]} {v:.3f}" for k, v in list(prof["kernel_ms"].items())[:6])
+            ci = prof["channel_input_ms_per_step"]
             print(f"profile {name}: wall {prof['wall_ms']:.3f} ms per dispatch, decode share "
-                  f"{prof['decode_share']:.1%}, idle share {prof['idle_share']:.1%}; device ms: "
+                  f"{prof['decode_share']:.1%}, idle share {prof['idle_share']:.1%}, channel input "
+                  f"{'not measured' if ci is None else f'{ci:.4f} ms'} per step; device ms: "
                   f"{top}", flush=True)
         del sim, decoder
         torch.cuda.empty_cache()

@@ -26,30 +26,24 @@ step is the same at any batch size, a batch split into shards
 (``_draw_step``'s ``offset``) counts what the whole batch counts, and a
 point resumes at step granularity. The encoded chain draws info bits and a
 normal noise plane; the all-zeros chain one uniform (quantized) or normal
-(true LLRs) plane. On a CUDA device the planes come from the Philox kernel
-(``kernels/philox_planes.py``), on the CPU from its plain version.
+(true LLRs) plane. A step's channel input is one ``rng.channel_input`` call
+(:attr:`BERSimulator.channel_input_kind`): on a CUDA device one launch of
+the Philox kernel (``kernels/philox_planes.py``), which draws and turns the
+draws into the decoder's input in registers; on the CPU its plain version,
+the plane followed by the quantizer and AWGN operators. The encoded chain's
+info bits are a plane of the same kernel, encoded on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 
 import numpy as np
 import torch
 
-from ..channel.awgn import sigma2_from_ebn0_db
-from ..channel.modulation import bpsk_map
-from ..channel.quantizer import (
-    DeviceQuantizerTables,
-    build_quantizer_tables,
-    device_tables,
-    quantize_llr_with,
-    quantize_with,
-    sample_clusters_from_uniform,
-    sample_llrs_from_uniform,
-)
+from ..channel.awgn import received_plane, sigma2_from_ebn0_db
+from ..channel.quantizer import DeviceQuantizerTables, build_quantizer_tables, device_tables
 from ..construct.trellis import TrellisTables
 from ..decode.bp import belief_propagation_decode
 from ..decode.common import DecodeResult
@@ -149,13 +143,6 @@ class WholeBatchDecoder:
             )
         fn = min_sum_decode if self.decoder == "minsum" else belief_propagation_decode
         return fn(self.layout, channel_input, self.max_iters, early_exit=self.early_exit)
-
-
-def received_plane(bits: torch.Tensor, noise: torch.Tensor, sigma2: float) -> torch.Tensor:
-    """y = bpsk(bits) + sqrt(sigma^2) n in float32: a multiply, then an add
-    (XLA on the CPU fuses them into one FMA, so the JAX value may differ in
-    the last bit)."""
-    return bpsk_map(bits) + math.sqrt(sigma2) * noise
 
 
 class BERSimulator:
@@ -302,20 +289,22 @@ class BERSimulator:
 
     # ------------------------------------------------------------------
     def _count_errors(
-        self, outputs: torch.Tensor, reference_bits: torch.Tensor
+        self, outputs: torch.Tensor, reference_bits: torch.Tensor | None = None
     ) -> torch.Tensor:
         """Per-codeword bit errors over the counted prefix; the decision is
         bit = (cluster < T/2) for IB and bit = (llr < 0) for the float
-        decoders."""
+        decoders. With no ``reference_bits`` (the all-zeros codeword) every
+        decided 1 is an error."""
         prefix = outputs[: self.prefix_len]
         if self.decoder == "ib":
             hard = prefix < (self.trellis.t_decoder // 2)
         else:
             hard = prefix < 0
-        wrong = hard != reference_bits[: self.prefix_len].bool()
-        return wrong.sum(dim=0, dtype=torch.int32)
+        if reference_bits is not None:
+            hard = hard != reference_bits[: self.prefix_len].bool()
+        return hard.sum(dim=0, dtype=torch.int32)
 
-    def _decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor):
+    def _decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor | None):
         res = self.fused_decoder(channel_input)
         errors = self._count_errors(res.outputs, bits)
         return (
@@ -329,22 +318,14 @@ class BERSimulator:
     ) -> torch.Tensor:
         """The decoder's input from the received plane: clusters (IB),
         quantized LLRs, or true LLRs 2y/sigma^2."""
-        if self.decoder == "ib":
-            return quantize_with(qt.limits, y)
-        if self.llr_source == "quantized":
-            return quantize_llr_with(qt.limits, qt.llrs, y)
-        return 2.0 * y / sigma2
+        return rng.from_received(self._consumer, y, qt, sigma2)
 
     def step_from_uniform(self, u: torch.Tensor, qt: DeviceQuantizerTables):
         """One all-zeros block with quantized input, sampled by inversion
         from the float32 uniform plane ``u`` [n_vars, batch]: (bit errors,
         frame errors, iterations) as device scalars."""
-        bits = torch.zeros(u.shape, dtype=torch.int32, device=u.device)
-        if self.decoder == "ib":
-            channel_input = sample_clusters_from_uniform(qt.cdf, u, bits)
-        else:
-            channel_input = sample_llrs_from_uniform(qt.cdf, qt.llrs, u, bits)
-        return self._decode_and_count(channel_input, bits)
+        kind = "uniform_clusters" if self.decoder == "ib" else "uniform_llrs"
+        return self._decode_and_count(rng.consume(kind, u, qt), None)
 
     def step_from_received(
         self,
@@ -379,19 +360,38 @@ class BERSimulator:
             codeword, received_plane(codeword, noise, sigma2), qt, sigma2
         )
 
+    @property
+    def _consumer(self) -> str:
+        """What the decoder reads: 'clusters' (IB), 'llrs' (quantized) or
+        'true' LLRs."""
+        if self.decoder == "ib":
+            return "clusters"
+        return "llrs" if self.llr_source == "quantized" else "true"
+
+    @property
+    def channel_input_kind(self) -> str:
+        """The fused kind of ``rng.channel_input`` a step runs
+        (``kernels/philox_planes.py`` ``FUSED``): what ``step_from_uniform``,
+        ``step_from_normal`` or ``step_from_encoded`` builds on this chain."""
+        if self.chain == "encoded":
+            return f"encoded_{self._consumer}"
+        return "normal_true" if self._consumer == "true" else f"uniform_{self._consumer}"
+
     def _draw_step(self, qt: DeviceQuantizerTables, sigma2: float, offset: int = 0):
         """One block of codewords [offset, offset + batch) of the step whose
-        key ``_step`` set: (bit errors, frame errors, iterations)."""
-        def draw(kind: str, rows: int) -> torch.Tensor:
-            return rng.draw(kind, self._key, rows, offset, self.batch_total, self.device)
-
-        n = self.layout.n_vars
+        key ``_step`` set: (bit errors, frame errors, iterations). One
+        ``rng.channel_input`` call gives the decoder's input; the encoded
+        chain first draws its info bits and encodes them."""
+        batch = self.batch_total
+        codeword = None
         if self.chain == "encoded":
-            info = draw("bits", self._info_len)
-            return self.step_from_encoded(info, draw("normal", n), qt, sigma2)
-        if self.decoder != "ib" and self.llr_source == "true":
-            return self.step_from_normal(draw("normal", n), qt, sigma2)
-        return self.step_from_uniform(draw("uniform", n), qt)
+            info = rng.draw("bits", self._key, self._info_len, offset, batch, self.device)
+            codeword = self._encode(info)
+        channel_input = rng.channel_input(
+            self.channel_input_kind, self._key, self.layout.n_vars, offset, batch, self.device,
+            qt, sigma2, codeword,
+        )
+        return self._decode_and_count(channel_input, codeword)
 
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
         """``steps_per_dispatch`` blocks from ``step_index`` on, without a

@@ -21,11 +21,18 @@ pure function of (seed, round(ebn0_db * 1000), step, global codeword index).
 
 :func:`plane_plain` computes a plane with torch int64 operations (a 32-bit
 multiply-high through a wrapping int64 product, an arithmetic shift and a
-mask), the same bits on the CPU and on a card; :func:`draw` is what the
-engine calls: the plain version for the CPU, the kernel
-``csrc/philox_planes.cu`` (``kernels/philox_planes.py``) for a CUDA device,
-which computes the same planes, the normals through the same libdevice
-``logf``, ``sqrtf`` and ``cosf`` that torch's CUDA operators call.
+mask), the same bits on the CPU and on a card; :func:`draw` gives a plane:
+the plain version for the CPU, the kernel ``csrc/philox_planes.cu``
+(``kernels/philox_planes.py``) for a CUDA device, which computes the same
+planes, the normals through the same libdevice ``logf``, ``sqrtf`` and
+``cosf`` that torch's CUDA operators call.
+
+:func:`channel_input` is what the engine calls once per step: the decoder's
+input of one fused kind (``philox_planes.FUSED``), the drawn plane run
+through the quantizer and AWGN operators (:func:`consume`). Its plain
+version :func:`channel_input_plain` is that composition on
+:func:`plane_plain`; on a CUDA device the kernel computes it in one pass,
+equal to the composition on the card.
 """
 
 from __future__ import annotations
@@ -34,8 +41,16 @@ import math
 
 import torch
 
+from ..channel.awgn import received_plane
+from ..channel.quantizer import (
+    DeviceQuantizerTables,
+    quantize_llr_with,
+    quantize_with,
+    sample_clusters_from_uniform,
+    sample_llrs_from_uniform,
+)
 from ..kernels import philox_planes
-from ..kernels.philox_planes import ELEMENTS_PER_GROUP, STREAMS
+from ..kernels.philox_planes import ELEMENTS_PER_GROUP, FUSED, STREAMS
 
 MASK32 = 0xFFFFFFFF
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)  # round multipliers
@@ -92,6 +107,12 @@ def check_plane(kind: str, rows: int, offset: int, batch: int) -> None:
         )
 
 
+def check_kind(kind: str) -> None:
+    """Refuse a channel input that is not one of the fused kinds."""
+    if kind not in FUSED:
+        raise ValueError(f"unknown channel input {kind!r}; expected one of {tuple(FUSED)}")
+
+
 def uniform24(word: torch.Tensor) -> torch.Tensor:
     """float32 uniform in [0, 1) from the top 24 bits of a word (exact)."""
     return (word >> 8).to(torch.float32) * U24
@@ -132,3 +153,69 @@ def draw(
         return plane_plain(kind, key, rows, offset, batch, device)
     check_plane(kind, rows, offset, batch)
     return philox_planes.plane(kind, key, rows, offset, batch, device)
+
+
+def consume(
+    kind: str, plane: torch.Tensor, tables: DeviceQuantizerTables, sigma2: float | None = None,
+    codeword: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The decoder's input of fused ``kind`` from its drawn ``plane`` by the
+    quantizer and AWGN operators, as the engine's ``step_from_*`` build it:
+    inversion sampling of the all-zeros codeword from a uniform plane
+    (clusters, or their LLRs); y = bpsk(codeword) + sqrt(sigma^2) n from a
+    normal plane (the all-zeros codeword when ``codeword`` is None), then its
+    cluster, the cluster's LLR or 2y / sigma^2."""
+    draw, consumer, encoded = FUSED[kind]
+    if encoded != (codeword is not None):
+        raise ValueError(f"{kind} {'reads' if encoded else 'takes no'} codeword")
+    if draw == "uniform":
+        zeros = torch.zeros(plane.shape, dtype=torch.int32, device=plane.device)
+        if consumer == "clusters":
+            return sample_clusters_from_uniform(tables.cdf, plane, zeros)
+        return sample_llrs_from_uniform(tables.cdf, tables.llrs, plane, zeros)
+    if codeword is None:
+        codeword = torch.zeros(plane.shape, dtype=torch.int8, device=plane.device)
+    return from_received(consumer, received_plane(codeword, plane, sigma2), tables, sigma2)
+
+
+def from_received(
+    consumer: str, y: torch.Tensor, tables: DeviceQuantizerTables, sigma2: float | None = None
+) -> torch.Tensor:
+    """What the decoder reads of the received plane ``y``: its cluster
+    ('clusters'), that cluster's LLR ('llrs') or 2y / sigma^2 ('true')."""
+    if consumer == "clusters":
+        return quantize_with(tables.limits, y)
+    if consumer == "llrs":
+        return quantize_llr_with(tables.limits, tables.llrs, y)
+    return 2.0 * y / sigma2
+
+
+def channel_input_plain(
+    kind: str, key: tuple[int, int], rows: int, offset: int, batch: int,
+    tables: DeviceQuantizerTables, sigma2: float | None = None,
+    codeword: torch.Tensor | None = None, device: torch.device | str = "cpu",
+) -> torch.Tensor:
+    """The decoder's [rows, batch] input of fused ``kind`` for codewords
+    [offset, offset + batch) under ``key``: :func:`consume` of the plane
+    :func:`plane_plain` draws."""
+    check_kind(kind)
+    plane = plane_plain(philox_planes.draw_of(kind), key, rows, offset, batch, device)
+    return consume(kind, plane, tables, sigma2, codeword)
+
+
+def channel_input(
+    kind: str, key: tuple[int, int], rows: int, offset: int, batch: int,
+    device: torch.device | str, tables: DeviceQuantizerTables,
+    sigma2: float | None = None, codeword: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The input of :func:`channel_input_plain` on ``device``: computed there
+    by the plain version on the CPU and by the kernel, in one launch, on a
+    CUDA device (which launches it or raises)."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return channel_input_plain(kind, key, rows, offset, batch, tables, sigma2, codeword, device)
+    check_kind(kind)
+    check_plane(philox_planes.draw_of(kind), rows, offset, batch)
+    return philox_planes.channel_input(kind, key, rows, offset, batch, device, tables, sigma2,
+                                       codeword)
+

@@ -171,12 +171,36 @@ DECODE_KERNELS = ("ib_lut_fused_kernel", "float_fused_kernel", "seed_kernel", "c
                   "vn_kernel", "syndrome_kernel", "decide_kernel")
 
 
+# The kernel that opens a step's channel input: the Philox kernel, for the
+# encoded chain's info bits or for the whole input (csrc/philox_planes.cu).
+DRAW_KERNEL = "channel_input_kernel"
+
+
+def channel_input_ms(kernels: list[tuple[str, float, float]], steps: int) -> float | None:
+    """Device milliseconds per step of the channel input in a profiled
+    dispatch of ``steps`` steps, from its ``kernels`` as (name, start us,
+    duration us): every kernel of a step from its first Philox launch to its
+    decode launch (the encoded chain's info bits and encoder included). None
+    when no decode kernel ran (``backend='xla'``)."""
+    total, inside, decoded = 0.0, False, False
+    for name, _, us in sorted(kernels, key=lambda k: k[1]):
+        if any(k in name for k in DECODE_KERNELS):
+            inside, decoded = False, True
+            continue
+        inside = inside or DRAW_KERNEL in name
+        if inside:
+            total += us
+    return total / 1e3 / steps if decoded else None
+
+
 def profile_dispatch(sim, ebn0_db: float, bps: float) -> dict:
     """Device milliseconds per kernel of one dispatch of a CUDA BERSimulator
     from ``torch.profiler`` (after an unprofiled one), and the shares of the
     dispatch's wall time that ``bps`` (:func:`measure_sim_throughput`)
     implies: the decode share is the decode kernels' time over it, the idle
-    share one less all kernels' time over it."""
+    share one less all kernels' time over it; and the channel input's device
+    milliseconds per step (:func:`channel_input_ms`)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     qt = sim.quantizer_for(ebn0_db)
@@ -194,11 +218,14 @@ def profile_dispatch(sim, ebn0_db: float, bps: float) -> dict:
         raise RuntimeError("the profiler saw no kernel on the card")
     wall = sim.layout.n_vars * sim.batch_total * sim.steps_per_dispatch / bps * 1e3
     decode = sum(v for k, v in ms.items() if any(n in k for n in DECODE_KERNELS))
+    kernels = [(e.name, e.time_range.start, e.time_range.elapsed_us())
+               for e in prof.events() if e.device_type == DeviceType.CUDA]
     return {
         "wall_ms": wall,
         "kernel_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
         "decode_share": decode / wall,
         "idle_share": 1 - sum(ms.values()) / wall,
+        "channel_input_ms_per_step": channel_input_ms(kernels, sim.steps_per_dispatch),
     }
 
 

@@ -32,6 +32,8 @@ it does, each type over its own data-sheet rate (:data:`DATA_SHEET_OPS_PER_S`;
 
 from __future__ import annotations
 
+import collections
+import math
 from typing import Callable
 
 import numpy as np
@@ -39,7 +41,7 @@ import torch
 
 from ..construct.trellis import TrellisTables
 from ..decode.graph_arrays import DecodeLayout
-from ..kernels import hbm_copy
+from ..kernels import hbm_copy, philox_planes
 from .peaks import _cuda, differenced_rate, lookup2d_peak
 
 # NVIDIA H100 SXM data sheet: 132 SMs at a 1.98 GHz boost clock and device
@@ -77,6 +79,18 @@ FLOAT_OP_COUNTS = {
     "float_mix": {"fp32": 3},  # add, then clip at +-150
     "min": {"fp32": 1},
 }
+# The integer pipes, per SM and clock (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0): 32-bit
+# multiply (64) and 32-bit logic (64).
+DATA_SHEET_OPS_PER_S.update(int32=SMS * 64 * BOOST_HZ, logic=SMS * 64 * BOOST_HZ)
+# One Philox4x32-10 group (csrc/philox_planes.cu, sim/rng.py): ten rounds of
+# two 32 x 32 -> 64-bit products, each a low and a high word, and two
+# three-input XORs.
+PHILOX_GROUP_OPS = {"int32": 40, "logic": 20}
+# The SASS opcodes counted per operation type in a channel-input kernel's
+# instructions (chip_smoke.py phase 25): the FP32 pipe, the special-function
+# unit and shared-memory loads.
+PIPE_OPCODES = {"fp32": FP32_OPCODES, "sfu": SFU_OPCODES, "lookup": ("LDS",)}
 VN_OPS_PER_EDGE = 4  # add into the total, subtract, clip (two)
 COPY_BYTES = 256 * 1024 * 1024  # one K6 buffer, five times the 50 MB L2
 
@@ -177,6 +191,46 @@ def _table_bytes(tables: TrellisTables) -> int:
     if tables.has_matching:
         names += ("matching_cn", "matching_vn")
     return sum(np.asarray(getattr(tables, n)).size for n in names)
+
+
+def pipe_counts(opcodes: dict[str, int]) -> dict[str, int]:
+    """Instructions per type of :data:`PIPE_OPCODES` in a count of SASS
+    opcodes."""
+    return {k: sum(opcodes.get(op, 0) for op in ops) for k, ops in PIPE_OPCODES.items()}
+
+
+def channel_input_ops(
+    kind: str, rows: int, batch: int, box_muller: dict[str, float], thresholds: int = 0
+) -> dict[str, float]:
+    """The operations by type (:data:`DATA_SHEET_OPS_PER_S`) that the
+    [rows, batch] output of the channel-input ``kind`` (a plane or fused
+    kind of ``kernels/philox_planes.py``) needs: its Philox groups
+    (:data:`PHILOX_GROUP_OPS`); per element a uniform's scaling or a normal's
+    Box-Muller, ``box_muller`` by type (the libdevice ``logf``, ``sqrtf`` and
+    ``cosf`` its ``==`` requires, counted from its SASS); y's multiply and
+    add; the true LLR's two multiplies; and a search over ``thresholds``
+    values of log2 of its outcomes in compares and shared-memory loads, one
+    more load for the cluster's LLR."""
+    draw, consumer, _ = philox_planes.FUSED.get(kind, (kind, "plane", False))
+    per = philox_planes.ELEMENTS_PER_GROUP[draw]
+    groups = -(-rows // per) * batch
+    ops = {k: n * groups for k, n in PHILOX_GROUP_OPS.items()}
+    elements = rows * batch
+    per_element = collections.Counter()
+    if draw == "uniform":
+        per_element["fp32"] += 1
+    elif draw == "normal":
+        per_element.update(box_muller)
+        if consumer != "plane":
+            per_element["fp32"] += 2
+    if consumer == "true":
+        per_element["fp32"] += 2
+    elif consumer in ("clusters", "llrs"):
+        probes = math.ceil(math.log2(thresholds + 1))
+        per_element.update(fp32=probes, lookup=probes + (consumer == "llrs"))
+    for k, n in per_element.items():
+        ops[k] = ops.get(k, 0) + n * elements
+    return ops
 
 
 def bound(moved: float, ops: dict[str, float]) -> dict:
