@@ -8,9 +8,12 @@ i_max 50, the same batch) and the encoded chain through K2; the DVB-S2
 R=1/2 N=64800 cells (IB |T|=16 on the encoded chain, min-sum on quantized
 LLRs, 1.0 dB, i_max 50, batch 1024) through the device-memory kernels K3 and
 K4; the benchmark matrix through K5 and K6; the probes P1-P6 through their
-entry point; and the channel input of every Monte-Carlo step (its
-per-codeword draws and what the decoder reads of them) through the Philox
-kernel.
+entry point; the channel input of every Monte-Carlo step (its per-codeword
+draws and what the decoder reads of them) through the Philox kernel; and the
+M-ary chains (WLAN min-sum on 16-QAM and 8-PSK through the exact soft
+demapper, batch 512 x 8 steps, i_max 50) through the Philox kernel's bits
+and normal planes and K2 (K4 on DVB-S2), with the resumable sweep and the
+CLI.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it):
@@ -158,13 +161,39 @@ kernel.
     3.35 TB/s, beside K3's ms per body from phase 15;
 29. the probe entry point's P5 and P6 with the launch counts reset: ms per
     iteration or body, GB/s and the fraction of the bound of every variant,
-    K3's ms per body beside P6 (above 1.05 x 3.35 TB/s: raise).
+    K3's ms per body beside P6 (above 1.05 x 3.35 TB/s: raise);
+30. the map and the demap on the card against the CPU on the same bits and
+    noise (WLAN, batch 512, n0 of 3.5 dB): 16-QAM, 64-QAM and 8-PSK symbols
+    and received values equal (``==``), LLRs within the CPU tests'
+    tolerance (``MARY_LLR_RTOL`` of max(1, |ref|)); K2 min-sum on the
+    card's 16-QAM LLRs equal to its plain twin on the card;
+31. the WLAN min-sum 16-QAM chain at ``scripts/queue.py``'s settings
+    (batch 512 x 8 steps, i_max 50, seed 33): coded Mbit/s; one info-bit
+    plane, one normal plane and one K2 launch a step and no fused channel
+    input; FER and BER over 32768 blocks at 3.5 and 4.2 dB inside bands
+    around ``results/ber/wlan_minsum_qam16.json``; one dispatch's counters,
+    its bits and normal planes equal to ``plane_plain`` on the card, and the
+    count of elements in which the CPU's plain normals differ from the
+    card's (last bits);
+32. the 8-PSK chain (seed 34): coded Mbit/s, FER at ``PSK_POINTS`` falling
+    with Eb/N0 (no reference curve); 16-QAM on DVB-S2 through K4
+    (``backend='auto'``), batch 1024: coded Mbit/s and one point;
+33. one 16-QAM dispatch under ``torch.profiler``, in a process of its own:
+    device ms per step of the info-bit plane, the encoder, the normal
+    plane, the map, the demap, K2 and the counting, and the idle and demap
+    shares of phase 31's wall time;
+34. resume on the card: a point stopped by ``on_progress`` after 2
+    dispatches and resumed from its saved ``partial`` counts what the
+    uninterrupted point does; the CLI sweeps 8-PSK over 2 points into a
+    results file, and a rerun with a higher ``--max-db`` resumes after them
+    without recomputing them; ``--export-npz`` writes the JAX keys.
 
 Each phase prints one line per check and its seconds; any failure raises and
 exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
 the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4,p5_p6}.json``.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and the device record.
+The last lines are the run's total seconds, the kernels' JSON record (the
+M-ary path's launches added to K2's, K4's and the planes'), the card's name
+and power limit, and the device record.
 
 Usage: python3 chip_smoke.py
 """
@@ -172,10 +201,12 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import re
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -208,6 +239,10 @@ K5_REPLACES = {
 }
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
+MARY_BATCH = 512  # scripts/queue.py's M-ary sweeps: batch 512 x 8 steps per dispatch
+MARY_DISPATCHES = 8  # 32768 blocks per M-ary point
+MARY_LLR_RTOL = 2e-6  # the demappers' tolerance of tests/test_torch_mary.py, of max(1, |ref|)
+PSK_POINTS = (3.0, 3.5)  # Eb/N0 (dB) of the 8-PSK points: the curve's waterfall
 PROBE_LIBRARIES = ("lut_columns", "bulk_read", "bulk_copies")
 LATE_LIBRARIES = ("philox_planes", "stage_chunks", "stage_replay")
 PHILOX_PLANES = {  # plane kind -> (rows, batch): rng.draw's planes on the cells' shapes
@@ -816,9 +851,330 @@ def late_phases(dev, card: str, lap, builds: dict, main_counts, k3_ms_per_body: 
     return records
 
 
+def mary_phases(dev, card: str, lap, layout, encoder, dv_layout, dv_encoder) -> dict:
+    """Phases 30-34: the M-ary chains (QAM and M-PSK through the exact soft
+    demapper into K2, or K4 on DVB-S2) and the resumable sweep on the card.
+    Returns the launches of the M-ary main path (phases 31-32) per kernel and
+    the profile of phase 33."""
+    import numpy as np
+
+    from informationbottleneckdecodingldpc_torch.channel import (
+        gray_encoding_table, mpsk_bit_llrs, mpsk_map, qam_bit_llrs, qam_map, sigma2_from_ebn0_db)
+    from informationbottleneckdecodingldpc_torch.channel.demap import demap_llrs
+    from informationbottleneckdecodingldpc_torch.channel.modulation import Constellation
+    from informationbottleneckdecodingldpc_torch.cli import simulate
+    from informationbottleneckdecodingldpc_torch.kernels import FusedFloatDecoder, float_decode_tiled
+    from informationbottleneckdecodingldpc_torch.kernels import philox_planes
+    from informationbottleneckdecodingldpc_torch.sim import BERSimulator, PointCheckpoint, rng
+    from informationbottleneckdecodingldpc_torch.sim.engine import step_seed
+    from informationbottleneckdecodingldpc_torch.sim.results import load_partial, save_results
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import measure_sim_throughput
+
+    cpu = torch.device("cpu")
+    f32 = np.float32
+
+    # -- 30: map and demap on the card against the CPU ------------------------------------
+    ref_sigma2 = float(f32(sigma2_from_ebn0_db(3.5, 0.5)))
+    g = np.random.default_rng(30)
+    qam16_llrs = None
+    for kind, order, label in (("qam", 4, "QAM-16"), ("qam", 8, "QAM-64"), ("mpsk", 8, "8-PSK")):
+        k = 2 * int(np.log2(order)) if kind == "qam" else int(np.log2(order))
+        table = gray_encoding_table(k // 2 if kind == "qam" else k)
+        bits = g.integers(0, 2, (layout.n_vars, MARY_BATCH)).astype(np.int8)
+        noise = g.normal(size=(layout.n_vars // k, MARY_BATCH, 2)).astype(np.float32)
+        n0 = float(f32(f32(2.0) * f32(ref_sigma2)) / f32(k))
+        scale = float(f32(math.sqrt(n0 / 2.0)))
+        mapper, demapper = (qam_map, qam_bit_llrs) if kind == "qam" else (mpsk_map, mpsk_bit_llrs)
+        out = []
+        for d in (cpu, dev):
+            sym = mapper(torch.as_tensor(bits, device=d), table, order)
+            y = sym + scale * torch.as_tensor(noise, device=d)
+            out.append((sym, y, demapper(y, table, order, n0)))
+        (sym_c, y_c, llr_c), (sym_g, y_g, llr_g) = out
+        if not (torch.equal(sym_g.cpu(), sym_c) and torch.equal(y_g.cpu(), y_c)):
+            raise AssertionError(f"{label}: the card's symbols or received values differ from the CPU's")
+        want = llr_c.numpy()
+        err = np.abs(llr_g.cpu().numpy() - want) / np.maximum(1.0, np.abs(want))
+        if not err.max() <= MARY_LLR_RTOL:
+            raise AssertionError(f"{label}: the card's LLRs differ from the CPU's by {err.max():.3e} "
+                                 f"of max(1, |ref|), above {MARY_LLR_RTOL}")
+        # A few calls: each launches tens of small kernels, and more than the
+        # launch queue holds would wait on the sleep device_ms queues them behind.
+        # The tables are made on the card first, as the simulator makes them.
+        constellation = Constellation.build(kind, order, table, dev)
+        demap_ms = device_ms(lambda: demap_llrs(constellation, y_g, n0), reps=4)
+        print(f"[30 exact] {label} on WLAN, {layout.n_vars} bits x {MARY_BATCH}, n0 {n0:.6f}: symbols "
+              f"and received values equal to the CPU's, LLRs within {err.max():.3e} of max(1, |ref|) "
+              f"(tolerance {MARY_LLR_RTOL}, {float((err == 0).mean()):.4f} of them equal); demap "
+              f"{demap_ms:.4f} ms on {card}", flush=True)
+        if label == "QAM-16":
+            qam16_llrs = llr_g
+    dec = FusedFloatDecoder(layout, "minsum", max_iters=50)
+    got = dec(qam16_llrs)
+    ref = float_decode_tiled(layout, qam16_llrs, "minsum", dec.batch_tile, 50)
+    torch.cuda.synchronize()
+    if not (bool((got.outputs == ref.outputs).all()) and torch.equal(got.unsatisfied, ref.unsatisfied)
+            and float(got.iterations) == float(ref.iterations)):
+        raise AssertionError("K2 disagrees with its twin on the card's QAM-16 LLRs")
+    print(f"[30 exact] K2 min-sum on the card's QAM-16 LLRs at 3.5 dB, batch {MARY_BATCH}: outputs, "
+          f"unsatisfied and mean iterations {float(got.iterations):.4f} equal to the plain twin",
+          flush=True)
+    lap(30)
+
+    # -- 31: the WLAN min-sum QAM-16 chain (scripts/queue.py wlan_minsum_qam16) -----------
+    ref_file = Path(__file__).resolve().parent / "results/ber/wlan_minsum_qam16.json"
+    reference = {p["ebn0_db"]: p for p in json.loads(ref_file.read_text())["points"]}
+    launched = collections.Counter()
+
+    def mary_sim(lay, enc, kind, order, batch, steps, seed):
+        return BERSimulator(lay, "minsum", device=dev, max_iters=50, chain="encoded",
+                            llr_source="true", modulation=kind, mod_order=order, encoder=enc,
+                            batch_per_device=batch, steps_per_dispatch=steps, seed=seed)
+
+    def drive(sim, points, name):
+        """Throughput at the first point and ``MARY_DISPATCHES`` dispatches at
+        each, with the launches counted from 0: one bits and one normal plane
+        and one decode a step, no fused channel input."""
+        decoder = sim.fused_decoder
+        decoder.launches = 0
+        philox_planes.launches.clear()
+        rate = measure_sim_throughput(sim, points[0])
+        got = {db: dispatch_point(sim, db, MARY_DISPATCHES) for db in points}
+        steps = (1 + 6 + MARY_DISPATCHES * len(points)) * sim.steps_per_dispatch
+        planes = collections.Counter(philox_planes.launches)
+        if decoder.launches != steps or planes != collections.Counter(bits=steps, normal=steps):
+            raise AssertionError(f"{name}: {decoder.launches} decodes and Philox launches "
+                                 f"{dict(planes)} for {steps} steps")
+        if sim.channel_input_kind is not None:
+            raise AssertionError(f"{name} names the fused kind {sim.channel_input_kind}")
+        launched.update(planes)
+        launched["k2" if sim.backend == "fused" else "k4"] += decoder.launches
+        print(f"[{name}] {rate / 1e6:.2f} Mbit/s coded on {card} ({sim.backend}, batch "
+              f"{sim.batch_total} x {sim.steps_per_dispatch} steps); {decoder.launches} decodes, "
+              f"{planes['bits']} bits and {planes['normal']} normal planes for {steps} steps, no "
+              "fused channel input", flush=True)
+        return rate, got
+
+    qam = mary_sim(layout, encoder, "qam", 4, MARY_BATCH, 8, 33)
+    qam_rate, qam_points = drive(qam, (3.5, 4.2), "31 chain")
+    for db, point in qam_points.items():
+        r = reference[db]
+        fer_band, ber_band = ref_bands(point, r["fer"], r["blocks"])
+        print(f"[31 point] QAM-16 {db} dB over {point['blocks']} blocks: FER {point['fer']:.5f} "
+              f"({r['fer']} +- {fer_band:.5f}), BER {point['ber']:.6f} ({r['ber']:.6f} +- "
+              f"{ber_band:.6f}, results/ber/wlan_minsum_qam16.json, {r['blocks']} blocks), mean "
+              f"iterations {point['iterations']:.3f}", flush=True)
+        if abs(point["fer"] - r["fer"]) > fer_band or abs(point["ber"] - r["ber"]) > ber_band:
+            raise AssertionError(f"QAM-16 FER or BER at {db} dB outside its band")
+    # One dispatch's counters, and the planes it draws held against their
+    # plain version on the card: equal planes feed the same demap and K2. The
+    # CPU's plain normals differ from the card's in the last bits of some
+    # elements (libm against libdevice), which a 49-body min-sum decode of
+    # 4096 codewords turns into other counts: the elements are counted here.
+    counters = [float(v) for v in qam._step(3.5, 0, None)]
+    rows = 2 * layout.n_vars // 4
+    for j in range(qam.steps_per_dispatch):
+        key = rng.key_words(step_seed(qam.seed, 3.5, j))
+        for kind, n in (("bits", qam._info_len), ("normal", rows)):
+            if not torch.equal(rng.draw(kind, key, n, 0, MARY_BATCH, dev),
+                               rng.plane_plain(kind, key, n, 0, MARY_BATCH, dev)):
+                raise AssertionError(f"step {j}'s {kind} plane differs from its plain version")
+    card_noise = rng.draw("normal", qam._key, rows, 0, MARY_BATCH, dev).cpu()
+    differ = int((card_noise != rng.plane_plain("normal", qam._key, rows, 0, MARY_BATCH)).sum())
+    print(f"[31 counters] one QAM-16 dispatch at 3.5 dB: bit errors {counters[0]:.0f}, frame errors "
+          f"{counters[1]:.0f}, mean iterations {counters[2]:.4f}; the bits and normal planes of its "
+          f"{qam.steps_per_dispatch} steps equal their plain version on the card; the CPU's plain "
+          f"normal plane of its last step differs from the card's in {differ} of "
+          f"{card_noise.numel()} elements (last bits)", flush=True)
+    lap(31)
+
+    # -- 32: the 8-PSK chain (scripts/queue.py wlan_minsum_psk8), and QAM-16 on DVB-S2 ----
+    psk = mary_sim(layout, encoder, "mpsk", 8, MARY_BATCH, 8, 34)
+    psk_rate, psk_points = drive(psk, PSK_POINTS, "32 chain")
+    fers = [psk_points[db]["fer"] for db in PSK_POINTS]
+    for db, point in psk_points.items():
+        print(f"[32 point] 8-PSK {db} dB over {point['blocks']} blocks: FER {point['fer']:.5f}, BER "
+              f"{point['ber']:.6f}, mean iterations {point['iterations']:.3f} (no reference curve)",
+              flush=True)
+    if not 0 < fers[1] < fers[0]:
+        raise AssertionError(f"8-PSK FER does not fall with Eb/N0: {fers}")
+    dv = mary_sim(dv_layout, dv_encoder, "qam", 4, 1024, 1, 0)
+    if dv.backend != "hbm":
+        raise AssertionError(f"DVB-S2 QAM-16 runs on {dv.backend!r}, not 'hbm'")
+    dv_rate, dv_points = drive(dv, (3.0,), "32 dvbs2")
+    print(f"[32 point] DVB-S2 QAM-16 through K4, 3.0 dB over {dv_points[3.0]['blocks']} blocks: FER "
+          f"{dv_points[3.0]['fer']:.5f}, BER {dv_points[3.0]['ber']:.6f}", flush=True)
+    del dv
+    torch.cuda.empty_cache()
+    lap(32)
+
+    # -- 33: profile of one QAM-16 dispatch, in a process of its own -----------------------
+    # (torch.profiler has seen no kernel in this process after earlier profiled phases.)
+    child = subprocess.run([sys.executable, __file__, "--mary-profile", repr(qam_rate)],
+                           capture_output=True, text=True, timeout=600)
+    if child.returncode:
+        raise AssertionError(f"the M-ary profile failed: {child.stderr[-3000:]}")
+    profile_out = json.loads(child.stdout.strip().splitlines()[-1])
+    per_step = profile_out["ms_per_step"]
+    print(f"[33 profile] one QAM-16 dispatch (8 steps of {MARY_BATCH}) at 3.5 dB under "
+          "torch.profiler: device ms per step " + ", ".join(f"{k} {v:.4f}" for k, v in per_step.items())
+          + f"; wall {profile_out['wall_ms_per_step']:.4f} ms per step from phase 31's rate, idle "
+          f"share {profile_out['idle_share']:.1%}, demap share {profile_out['demap_share']:.1%} "
+          f"({profile_out['map_kernels']} map and {profile_out['demap_kernels']} demap kernels a "
+          f"step) on {card}", flush=True)
+    lap(33)
+
+    # -- 34: resume on the card ------------------------------------------------------------
+    spd = qam.steps_per_dispatch
+    full = qam.run_point(3.5, min_errors=10**12, max_blocks=4 * MARY_BATCH * spd)
+    snap = {}
+
+    class Stop(Exception):
+        pass
+
+    def grab(state):
+        snap.update(dataclasses.asdict(state))
+        if state.step_index >= 2 * spd:
+            raise Stop
+
+    try:
+        qam.run_point(3.5, min_errors=10**12, max_blocks=4 * MARY_BATCH * spd, on_progress=grab)
+    except Stop:
+        pass
+    with tempfile.TemporaryDirectory() as tmp:
+        save_results(str(Path(tmp) / "partial.json"), [], partial=snap)
+        resumed = qam.run_point(3.5, min_errors=10**12, max_blocks=4 * MARY_BATCH * spd,
+                                checkpoint=PointCheckpoint(**load_partial(str(Path(tmp) / "partial.json"))))
+        keys = ("errors", "frame_errors", "blocks", "ber", "fer", "mean_iterations")
+        if [getattr(resumed, k) for k in keys] != [getattr(full, k) for k in keys]:
+            raise AssertionError(f"the resumed point counts {resumed}, the uninterrupted {full}")
+        print(f"[34 resume] QAM-16 3.5 dB stopped after 2 dispatches and resumed from its saved "
+              f"partial: {resumed.errors} bit errors, {resumed.frame_errors} frame errors over "
+              f"{resumed.blocks} blocks, mean iterations {resumed.mean_iterations:.4f}, equal to the "
+              "uninterrupted point", flush=True)
+        out, npz = str(Path(tmp) / "psk8.json"), str(Path(tmp) / "psk8.npz")
+        argv = ["--model", "wlan-1296", "--decoder", "minsum", "--chain", "encoded",
+                "--modulation", "psk8", "--device", str(dev), "--start-db", str(PSK_POINTS[0]),
+                "--step-db", "0.5", "--min-errors", "1", "--max-blocks-per-point", "4096",
+                "--batch-per-device", str(MARY_BATCH), "--steps-per-dispatch", "8", "--seed", "34",
+                "--results", out]
+        first = simulate.main(argv + ["--max-db", str(PSK_POINTS[0] + 0.5)])
+        second = simulate.main(argv + ["--max-db", str(PSK_POINTS[0] + 1.0), "--export-npz", npz])
+        keys = set(np.load(npz).keys())
+        if not (len(first) == 2 and second[:2] == first and len(second) == 3
+                and keys == {"EbN0_dB_vector", "BER_vector", "FER_vector"}):
+            raise AssertionError(f"the CLI's psk8 sweep did not resume: {first} then {second}, "
+                                 f"npz keys {keys}")
+        print(f"[34 cli] psk8 sweep through the CLI: points {[p['ebn0_db'] for p in first]} dB, "
+              f"rerun with a higher --max-db resumed after them (both kept as saved, elapsed "
+              f"{first[1]['elapsed_s']:.3f} s unchanged) and added {second[2]['ebn0_db']} dB (FER "
+              f"{second[2]['fer']:.4f}); --export-npz keys {sorted(keys)}", flush=True)
+    lap(34)
+    return {"launches": launched, "profile": profile_out, "qam16_mbit_s": qam_rate / 1e6,
+            "psk8_mbit_s": psk_rate / 1e6, "dvbs2_qam16_mbit_s": dv_rate / 1e6}
+
+
+def mary_profile(bps: float) -> dict:
+    """Phase 33, run in a process of its own: one dispatch of phase 31's
+    QAM-16 simulator at 3.5 dB under ``torch.profiler``, its kernels in
+    launch order attributed to the stages of each step (:func:`_attribute`);
+    the map's and the demap's kernel counts come from the same trace, each
+    run once alone between sleep kernels before the dispatch. ``bps`` is
+    phase 31's rate, which gives the wall time per step and the idle share."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from informationbottleneckdecodingldpc_torch.channel.demap import demap_llrs
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import DRAW_KERNEL
+    from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
+    from informationbottleneckdecodingldpc_torch.models import get_model
+    from informationbottleneckdecodingldpc_torch.sim import BERSimulator, rng
+
+    dev = torch.device("cuda")
+    spec = get_model("wlan-1296")
+    H = spec.make_h()
+    layout = spec.make_layout(H)
+    sim = BERSimulator(layout, "minsum", device=dev, max_iters=50, chain="encoded",
+                       llr_source="true", modulation="qam", mod_order=4, encoder=LDPCEncoder(H),
+                       batch_per_device=MARY_BATCH, steps_per_dispatch=8, seed=33)
+    spd = sim.steps_per_dispatch
+    sim._step(3.5, 9000 * spd, None)
+    codeword = sim._encode(rng.draw("bits", sim._key, layout.data_len, 0, MARY_BATCH, dev))
+    noise = rng.draw("normal", sim._key, 2 * layout.n_vars // 4, 0, MARY_BATCH, dev)
+    n0 = sim.n0_for(sim.sigma2_for(3.5))
+    scale = float(np.float32(math.sqrt(n0 / 2.0)))
+    constellation = sim._constellation  # the step's own tables, on the card
+    mapped = lambda: constellation.map(codeword) + scale * noise.view(
+        -1, 2, MARY_BATCH).permute(0, 2, 1)
+    y = mapped()
+    demap_llrs(constellation, y, n0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(100_000)
+        mapped()
+        torch.cuda._sleep(100_000)
+        demap_llrs(constellation, y, n0)
+        torch.cuda._sleep(100_000)
+        sim._step(3.5, 9001 * spd, None)
+        torch.cuda.synchronize()
+    trace = sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                    for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda k: k[1])
+    sleeps = [i for i, (n, _, _) in enumerate(trace) if "spin" in n or "sleep" in n]
+    if len(sleeps) != 3:
+        raise AssertionError(f"the profile holds {len(sleeps)} sleep kernels, not 3: "
+                             f"{[n[:40] for n, _, _ in trace]}")
+    n_map, n_demap = sleeps[1] - sleeps[0] - 1, sleeps[2] - sleeps[1] - 1
+    stages = ("bits plane", "encoder", "normal plane", "map", "demap", "K2", "counting")
+    ms = dict.fromkeys(stages, 0.0)
+    steps, current = 0, []
+    for name, _, us in trace[sleeps[2] + 1 :]:
+        if DRAW_KERNEL in name and sum(
+                DRAW_KERNEL in n for n, _ in current) == 2:
+            steps += _attribute(current, n_map, n_demap, ms)
+            current = []
+        current.append((name, us))
+    steps += _attribute(current, n_map, n_demap, ms)
+    if steps != spd:
+        raise AssertionError(f"the profile holds {steps} steps, not {spd}")
+    wall = layout.n_vars * MARY_BATCH / bps * 1e3  # per step
+    per_step = {k: v / 1e3 / spd for k, v in ms.items()}
+    return {"ms_per_step": per_step, "wall_ms_per_step": wall,
+            "idle_share": 1 - sum(per_step.values()) / wall, "demap_share": per_step["demap"] / wall,
+            "map_kernels": n_map, "demap_kernels": n_demap}
+
+
+def _attribute(kernels: list[tuple[str, float]], n_map: int, n_demap: int, ms: dict) -> int:
+    """Add one M-ary step's kernels (name, us), in launch order, to the
+    stages of ``ms``: the bits plane (the first Philox launch), the encoder
+    (up to the second), the normal plane, ``n_map`` map kernels, ``n_demap``
+    demap kernels, the decode, then the counting. Returns 1, or 0 for an
+    empty list."""
+    if not kernels:
+        return 0
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import DECODE_KERNELS, DRAW_KERNEL
+
+    draws = [i for i, (n, _) in enumerate(kernels) if DRAW_KERNEL in n]
+    decode = [i for i, (n, _) in enumerate(kernels) if any(k in n for k in DECODE_KERNELS)]
+    if len(draws) != 2 or len(decode) != 1 or decode[0] - draws[1] - 1 < n_map + n_demap:
+        raise AssertionError(f"an M-ary step's kernels do not follow bits, encoder, normal, "
+                             f"{n_map} map, {n_demap} demap, decode: {[n[:40] for n, _ in kernels]}")
+    b, nrm, k = draws[0], draws[1], decode[0]
+    m, d = nrm + 1 + n_map, nrm + 1 + n_map + n_demap
+    spans = {"bits plane": (b, b + 1), "encoder": (b + 1, nrm), "normal plane": (nrm, nrm + 1),
+             "map": (nrm + 1, m), "demap": (m, d), "K2": (d, k + 1), "counting": (k + 1, len(kernels))}
+    for stage, (lo, hi) in spans.items():
+        ms[stage] += sum(us for _, us in kernels[lo:hi])
+    return 1
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
+    if sys.argv[1:2] == ["--mary-profile"]:  # phase 33's own process
+        print(json.dumps(mary_profile(float(sys.argv[2]))))
+        return
+    started = time.perf_counter()
     card = nvidia_smi()
     print(f"[1 device] {card}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
@@ -1758,8 +2114,20 @@ def main() -> None:
     })
     records += probe_phases(dev, card, lap, probe_builds, bandwidth["copy_"])
     records += late_phases(dev, card, lap, late_builds, main_counts, hbm_ms["ib"] / 49, dv_layout)
+    mary = mary_phases(dev, card, lap, layout, encoder, dv_layout, dv_encoder)
+    # The M-ary path's launches (phases 31-32) join each kernel's count.
+    mary_kernels = {"float_fused_minsum": "k2", "float_hbm_minsum": "k4",
+                    "philox_planes_bits": "bits", "philox_planes_normal": "normal"}
     for r in records:
         r.update({k: v for k, v in rows.get(r["name"], {}).items() if k not in r})
+        if r["name"] in mary_kernels:
+            r["launches"] += mary["launches"][mary_kernels[r["name"]]]
+            if r["name"] == "philox_planes_normal":
+                r.pop("note", None)  # the M-ary chains' noise
+    print(f"[mary] launches on the M-ary path: {json.dumps(dict(mary['launches']))}; QAM-16 "
+          f"{mary['qam16_mbit_s']:.2f}, 8-PSK {mary['psk8_mbit_s']:.2f}, DVB-S2 QAM-16 "
+          f"{mary['dvbs2_qam16_mbit_s']:.2f} Mbit/s coded on {card}", flush=True)
+    print(f"[total seconds] {time.perf_counter() - started:.1f}", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in (*KERNEL_KEYS, "note") if k in r} for r in records
     ]}))

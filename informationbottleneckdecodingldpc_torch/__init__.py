@@ -9,7 +9,8 @@ the model zoo) is its own copy.
 - ``codes``      check matrices (WLAN 802.11n, DVB-S2, regular and QC
                  constructions, alist/mat I/O) and Tanner graphs.
 - ``ib``         the exact symmetric IB quantizer of the channel output.
-- ``channel``    AWGN noise scale, BPSK mapping, the channel-output
+- ``channel``    the AWGN channel, BPSK, square-QAM and M-PSK mapping and
+                 transmitters, the exact soft demappers, the channel-output
                  quantizer tables, threshold quantization and inversion
                  sampling of channel clusters and their LLRs.
 - ``construct``  trellis lookup tables and loading of constructed decoder
@@ -27,11 +28,14 @@ the model zoo) is its own copy.
                  roofline's peak microkernels (``peaks``) and copy
                  (``hbm_copy``).
 - ``sim``        Monte-Carlo BER engine for the all-zeros and encoded BPSK
-                 chains, on the kernels or the whole-batch decoders.
+                 chains and the M-ary chains, on the kernels or the
+                 whole-batch decoders; resumable Eb/N0 sweeps and their
+                 results files and exports.
 - ``models``     named codes with the port's decode layout.
 - ``utils``      the headline, float-decoder, DVB-S2 and matrix scenarios,
-                 the primitive peaks and the roofline.
-- ``cli``        a reduced BER sweep command line and the benchmark matrix.
+                 the primitive peaks, the roofline and profiling helpers.
+- ``cli``        the BER sweep command line, the benchmark matrix, the
+                 probes and the IB early-exit count.
 """
 
 __version__ = "0.1.0"

@@ -1,18 +1,32 @@
-"""Run a BER sweep of the IB, min-sum or BP decoder on a BPSK chain.
+"""Run a BER sweep: the IB, min-sum or BP decoder on the all-zeros or encoded
+chain, BPSK or M-ary, resumable, with optional .npz, .mat and plot exports.
 
-Reduced port of ``cli/simulate.py``: one ``run_point`` per Eb/N0 from
-``--start-db`` to ``--max-db`` in steps of ``--step-db``; after each point
-the results file is rewritten as ``{"points": [...]}`` with the JAX engine's
-point keys. Sweep resume, exports and M-ary modulations are not ported yet.
-The default device is ``cuda``; without a card the run raises.
+Port of ``cli/simulate.py`` on ``SweepController`` and ``SweepSchedule``:
+Eb/N0 from ``--start-db`` in steps of ``--step-db`` until the BER reaches
+``--target-ber`` or Eb/N0 ``--max-db``; the results file is rewritten after
+every point (and mid-point every 50 steps), and a rerun with the same file
+resumes after the last completed point. ``--modulation qam<M>|psk<M>`` runs
+the encoded chain through the QAM or M-PSK map and the exact soft demapper
+into a float decoder (it implies ``--llr-source true``). ``--trace-dir``
+writes a ``torch.profiler`` trace of the sweep. The default device is
+``cuda``; without a card the run raises. One device only: the JAX CLI's
+multi-process flags (``--multihost``, ``--coordinator-address``,
+``--num-processes``, ``--process-id``, ``--n-devices``) belong to the
+multi-GPU port and are left out.
 
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
       --model wlan-1296 --config results/configs/wlan_T16_0.8.npz \\
       --start-db 0.8 --max-db 1.6 --step-db 0.4 --results wlan_ib.json
   python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
-      --model wlan-1296 --decoder minsum --chain encoded \\
-      --start-db 1.2 --max-db 1.6 --step-db 0.4 --results wlan_minsum.json
+      --model wlan-1296 --decoder minsum --chain encoded --modulation qam16 \\
+      --start-db 1.0 --max-db 4.5 --min-errors 7000 --batch-per-device 512 \\
+      --steps-per-dispatch 8 --seed 33 --results wlan_minsum_qam16.json \\
+      --export-npz wlan_minsum_qam16.npz
+  python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
+      --model wlan-1296 --decoder minsum --chain encoded --modulation psk8 \\
+      --start-db 1.5 --max-db 5.0 --min-errors 7000 --batch-per-device 512 \\
+      --steps-per-dispatch 8 --seed 34 --results wlan_minsum_psk8.json
   python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
       --model dvbs2-64800 --config results/configs/dvbs2_T16_0.6.npz \\
       --chain encoded --start-db 0.9 --max-db 1.1 --batch-per-device 1024 \\
@@ -26,20 +40,39 @@ DVB-S2 N=64800 does not fit the shared-memory kernels, so the engine's
 from __future__ import annotations
 
 import argparse
-import json
-import os
-
-import numpy as np
+import math
+import re
 
 from ..construct import DecoderConfig
 from ..decode import DeviceTrellis
 from ..encode import LDPCEncoder
 from ..models import get_model
-from ..sim import BERSimulator
+from ..sim import BERSimulator, SweepController, SweepSchedule
 from ..sim.engine import resolve_device
+from ..sim.results import export_mat, export_npz, export_plot
+from ..utils.profiling import device_trace
 
 
-def main(argv=None):
+def parse_modulation(p: argparse.ArgumentParser, text: str) -> tuple[str, int]:
+    """``bpsk``, ``qam<M>`` or ``psk<M>`` -> (modulation, order): sqrt(M)
+    for QAM, M for M-PSK; an unknown name or order is a usage error."""
+    if text == "bpsk":
+        return "bpsk", 2
+    m = re.fullmatch(r"(qam|psk)(\d+)", text)
+    if not m:
+        p.error(f"unrecognized --modulation {text!r}")
+    order = int(m.group(2))
+    if order < 4 or (order & (order - 1)):
+        p.error("modulation order must be a power of two >= 4")
+    if m.group(1) == "psk":
+        return "mpsk", order
+    sqrt_m = math.isqrt(order)
+    if sqrt_m * sqrt_m != order:
+        p.error("qam order must be a perfect square (square QAM)")
+    return "qam", sqrt_m
+
+
+def main(argv=None) -> list[dict]:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
     )
@@ -48,21 +81,33 @@ def main(argv=None):
     p.add_argument("--config", default=None, help="decoder config .npz (ib)")
     p.add_argument("--chain", choices=["allzero", "encoded"], default="allzero")
     p.add_argument("--llr-source", choices=["quantized", "true"], default="quantized")
+    p.add_argument("--modulation", default="bpsk",
+                   help="bpsk (default) | qam<M> | psk<M>, e.g. qam16, psk8; M-ary runs the "
+                        "encoded chain into a float decoder through the exact soft demapper "
+                        "(implies --llr-source true)")
     p.add_argument("--start-db", type=float, default=0.0)
     p.add_argument("--max-db", type=float, default=None)
     p.add_argument("--step-db", type=float, default=0.1)
+    p.add_argument("--target-ber", type=float, default=1e-6)
     p.add_argument("--min-errors", type=int, default=None)
-    p.add_argument("--max-blocks-per-point", type=int, default=10_000_000)
+    p.add_argument("--max-blocks-per-point", type=int, default=None,
+                   help="cap Monte-Carlo blocks per Eb/N0 point")
     p.add_argument("--max-iters", type=int, default=None)
     p.add_argument("--t-channel", type=int, default=None,
-                   help="channel-quantizer cardinality |T_ch| for the float "
-                        "decoders (default: the model's)")
+                   help="channel-quantizer cardinality |T_ch| for the float decoders "
+                        "(default: the model's)")
     p.add_argument("--batch-per-device", type=int, default=None)
-    p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="Monte-Carlo steps per dispatch (counters unchanged)")
     p.add_argument("--no-early-exit", action="store_true")
+    p.add_argument("--results", required=True, help="JSON results (the resume point)")
+    p.add_argument("--export-npz", default=None)
+    p.add_argument("--export-mat", default=None)
+    p.add_argument("--export-plot", default=None, help="BER curve (pdf/png)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the sweep here")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--results", required=True, help="JSON results file")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
@@ -73,15 +118,18 @@ def main(argv=None):
     if args.decoder == "ib":
         if not args.config:
             p.error("--config is required for the ib decoder")
-        if args.t_channel is not None:
-            p.error("--t-channel applies to the float decoders only (the ib "
-                    "decoder's |T_ch| comes from its config)")
         cfg = DecoderConfig.load(args.config)
         trellis = DeviceTrellis.from_tables(cfg.tables, device)
         cardinality_t_channel = cfg.tables.cardinality_t_channel
-    elif args.t_channel is not None:
+    if args.t_channel is not None:
+        if args.decoder == "ib":
+            p.error("--t-channel applies to the float decoders only (the ib decoder's "
+                    "|T_ch| comes from its config)")
         cardinality_t_channel = args.t_channel
+    modulation, mod_order = parse_modulation(p, args.modulation)
+    llr_source = "true" if modulation != "bpsk" else args.llr_source
     encoder = LDPCEncoder(H) if args.chain == "encoded" else None
+
     sim = BERSimulator(
         spec.make_layout(H),
         args.decoder,
@@ -89,7 +137,9 @@ def main(argv=None):
         device=device,
         max_iters=args.max_iters or spec.decode_i_max,
         chain=args.chain,
-        llr_source=args.llr_source,
+        llr_source=llr_source,
+        modulation=modulation,
+        mod_order=mod_order,
         count_all_bits=spec.count_all_bits and args.chain == "allzero",
         cardinality_t_channel=cardinality_t_channel,
         batch_per_device=args.batch_per_device or spec.batch_hint,
@@ -98,27 +148,24 @@ def main(argv=None):
         seed=args.seed,
         steps_per_dispatch=args.steps_per_dispatch,
     )
-    max_db = args.max_db if args.max_db is not None else spec.sweep_max_db
-    n_points = int(np.floor((max_db - args.start_db) / args.step_db + 1e-9)) + 1
-    points = []
-    for k in range(max(n_points, 0)):
-        ebn0 = round(args.start_db + k * args.step_db, 6)
-        r = sim.run_point(
-            ebn0,
-            min_errors=args.min_errors or spec.min_errors,
-            max_blocks=args.max_blocks_per_point,
-        )
-        points.append(r.to_dict())
-        print(
-            f"EbN0={ebn0:.2f} dB BER={r.ber:.3e} FER={r.fer:.3e} "
-            f"blocks={r.blocks} iters={r.mean_iterations:.2f}",
-            flush=True,
-        )
-        tmp = args.results + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump({"points": points}, f, indent=2)
-        os.replace(tmp, args.results)
-    return points
+    sched = SweepSchedule(
+        start_db=args.start_db,
+        normal_step_db=args.step_db,
+        max_db=args.max_db if args.max_db is not None else spec.sweep_max_db,
+        target_ber=args.target_ber,
+        min_errors=args.min_errors or spec.min_errors,
+        **({"max_blocks_per_point": args.max_blocks_per_point}
+           if args.max_blocks_per_point else {}),
+    )
+    with device_trace(args.trace_dir):
+        results = SweepController(sim, sched, results_path=args.results).run()
+    if args.export_npz:
+        export_npz(args.export_npz, results)
+    if args.export_mat:
+        export_mat(args.export_mat, results, decoder_name=args.model)
+    if args.export_plot:
+        export_plot(args.export_plot, results, label=f"{args.model}/{args.decoder}")
+    return [r.to_dict() for r in results]
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
-"""Monte-Carlo BER engine for the BPSK chains on one device.
+"""Monte-Carlo BER engine on one device: the BPSK and M-ary chains, resumable.
 
 Port of ``sim/engine.py`` for ``decoder`` in ``ib | minsum | bp``, ``chain``
-in ``allzero | encoded``, ``llr_source`` in ``quantized | true``, BPSK, one
-device. Each step draws its random planes, builds the channel input, decodes
-(the kernels on a CUDA device and their plain twins on the CPU, or with
-``backend='xla'`` the plain whole-batch decoders on either) and counts bit
-and frame errors over the counted prefix. The host loop accumulates the
-counters until ``min_errors`` bit errors or ``max_blocks`` blocks.
+in ``allzero | encoded``, ``llr_source`` in ``quantized | true``,
+``modulation`` in ``bpsk | qam | mpsk``, one device. Each step draws its
+random planes, builds the channel input, decodes (the kernels on a CUDA
+device and their plain twins on the CPU, or with ``backend='xla'`` the plain
+whole-batch decoders on either) and counts bit and frame errors over the
+counted prefix. The host loop accumulates the counters until ``min_errors``
+bit errors or ``max_blocks`` blocks; its state (:class:`PointCheckpoint`)
+resumes a point mid-way.
 
 Chains:
 
@@ -16,6 +18,10 @@ Chains:
 - ``encoded``: random info bits -> GF(2) encode on the device -> BPSK ->
   AWGN -> threshold quantizer (clusters or LLRs) or 2y/sigma^2; errors are
   counted against the transmitted bits.
+- M-ary (``modulation='qam'|'mpsk'``, the encoded chain into a float decoder
+  on true LLRs): info bits -> encode -> QAM or M-PSK map
+  (``channel/modulation.py``) -> complex AWGN with n0/2 per component ->
+  the exact soft demapper (``channel/demap.py``).
 
 Randomness is keyed per codeword, as in the JAX engine (``sim/rng.py``):
 column i of every random plane of step ``s`` at ``ebn0_db`` is a pure
@@ -24,25 +30,32 @@ step's key (:func:`step_seed`) counted by the global codeword index i and a
 stream per plane (info bits, noise, inversion uniforms). So codeword i of a
 step is the same at any batch size, a batch split into shards
 (``_draw_step``'s ``offset``) counts what the whole batch counts, and a
-point resumes at step granularity. The encoded chain draws info bits and a
-normal noise plane; the all-zeros chain one uniform (quantized) or normal
-(true LLRs) plane. A step's channel input is one ``rng.channel_input`` call
-(:attr:`BERSimulator.channel_input_kind`): on a CUDA device one launch of
-the Philox kernel (``kernels/philox_planes.py``), which draws and turns the
-draws into the decoder's input in registers; on the CPU its plain version,
-the plane followed by the quantizer and AWGN operators. The encoded chain's
-info bits are a plane of the same kernel, encoded on the device.
+point resumes at step granularity. The BPSK encoded chain draws info bits
+and a normal noise plane; the all-zeros chain one uniform (quantized) or
+normal (true LLRs) plane. A BPSK step's channel input is one
+``rng.channel_input`` call (:attr:`BERSimulator.channel_input_kind`): on a
+CUDA device one launch of the Philox kernel (``kernels/philox_planes.py``),
+which draws and turns the draws into the decoder's input in registers; on
+the CPU its plain version, the plane followed by the quantizer and AWGN
+operators. The encoded chain's info bits are a plane of the same kernel,
+encoded on the device. An M-ary step draws its info bits and a normal plane
+of 2 n_vars / k rows (row 2s + c is component c of symbol s), each a plane
+of that kernel; the map and the demap run as torch operators.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from ..channel.awgn import received_plane, sigma2_from_ebn0_db
+from ..channel.demap import demap_llrs
+from ..channel.modulation import Constellation, gray_encoding_table
 from ..channel.quantizer import DeviceQuantizerTables, build_quantizer_tables, device_tables
 from ..construct.trellis import TrellisTables
 from ..decode.bp import belief_propagation_decode
@@ -81,6 +94,19 @@ class PointResult:
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class PointCheckpoint:
+    """Mid-point resumable state: the Eb/N0, the next step index (the draws
+    are keyed by it) and the counters so far."""
+
+    ebn0_db: float
+    step_index: int
+    errors: int
+    frame_errors: int
+    blocks: int
+    iters_sum: float
 
 
 def step_seed(seed: int, ebn0_db: float, step_index: int) -> int:
@@ -171,6 +197,12 @@ class BERSimulator:
 
     The encoded chain needs the host ``encoder`` (``encode.LDPCEncoder``),
     whose matrices go to the device once.
+
+    ``modulation`` 'qam' or 'mpsk' (``mod_order`` sqrt(M) for QAM, M for
+    M-PSK, Gray-coded) runs the encoded chain into a float decoder on the
+    exact demapper's LLRs; the JAX engine's conditions hold (a float decoder,
+    ``llr_source='true'``, the encoded chain, ``n_vars`` a multiple of the
+    bits per symbol) and raise ``ValueError`` otherwise.
     """
 
     def __init__(
@@ -195,12 +227,9 @@ class BERSimulator:
         batch_tile: int | None = None,
         steps_per_dispatch: int = 1,
         modulation: str = "bpsk",
+        mod_order: int = 2,
         backend: str = "auto",
     ):
-        if modulation != "bpsk":
-            raise NotImplementedError(
-                f"modulation {modulation!r} is not ported yet (ROADMAP item 1)"
-            )
         if n_devices != 1:
             raise NotImplementedError(
                 "more than one device is not ported yet (ROADMAP item 3)"
@@ -213,7 +242,32 @@ class BERSimulator:
             raise ValueError(f"unknown llr_source {llr_source!r}")
         if backend not in ("auto", "fused", "hbm", "xla"):
             raise ValueError(f"unknown backend {backend!r}")
+        if modulation not in ("bpsk", "qam", "mpsk"):
+            raise ValueError(f"unknown modulation {modulation!r}")
+        self.modulation = modulation
+        self.mod_order = int(mod_order)
+        if modulation != "bpsk":
+            # The IB construction path is BPSK-only: M-ary chains decode the
+            # exact demapper's LLRs with a float decoder.
+            if decoder == "ib" or llr_source != "true":
+                raise ValueError("qam/mpsk require a float decoder with llr_source='true'")
+            if chain != "encoded":
+                raise ValueError(
+                    "qam/mpsk require the encoded chain (the all-zeros shortcut needs the "
+                    "BPSK/quantizer symmetry)"
+                )
+            bits = int(np.log2(self.mod_order))
+            k = 2 * bits if modulation == "qam" else bits
+            if layout.n_vars % k:
+                raise ValueError(
+                    f"codeword length {layout.n_vars} not divisible by {k} bits/symbol"
+                )
+            self._bits_per_symbol = k
+            self._encoding_table = gray_encoding_table(k // 2 if modulation == "qam" else k)
         self.device = resolve_device(device)
+        if modulation != "bpsk":
+            self._constellation = Constellation.build(
+                modulation, self.mod_order, self._encoding_table, self.device)
         self.layout = layout
         self.decoder = decoder
         self.chain = chain
@@ -360,6 +414,31 @@ class BERSimulator:
             codeword, received_plane(codeword, noise, sigma2), qt, sigma2
         )
 
+    def n0_for(self, sigma2: float) -> float:
+        """The M-ary chain's complex-noise variance: float32(2 sigma^2 / k) in
+        float32 arithmetic, as the JAX engine computes it from its float32
+        sigma^2."""
+        f32 = np.float32
+        return float(f32(f32(2.0) * f32(sigma2)) / f32(self._bits_per_symbol))
+
+    def mary_llrs(self, codeword: torch.Tensor, noise: torch.Tensor, sigma2: float) -> torch.Tensor:
+        """The exact demapper's LLRs [n_vars, batch] of ``codeword``'s QAM or
+        M-PSK symbols received as y = sym + float32(sqrt(n0/2)) n, where the
+        float32 normal plane ``noise`` [2 n_sym, batch] holds component c of
+        symbol s in row 2s + c."""
+        n_sym = codeword.shape[0] // self._bits_per_symbol
+        sym = self._constellation.map(codeword)
+        n0 = self.n0_for(sigma2)
+        scale = float(np.float32(math.sqrt(n0 / 2.0)))
+        y = sym + scale * noise.view(n_sym, 2, -1).permute(0, 2, 1)
+        return demap_llrs(self._constellation, y, n0)
+
+    def step_from_symbols(self, info: torch.Tensor, noise: torch.Tensor, sigma2: float):
+        """One M-ary block from info bits [K, batch] and the float32 normal
+        plane ``noise`` [2 n_vars / k, batch] (:meth:`mary_llrs`)."""
+        codeword = self._encode(info)
+        return self._decode_and_count(self.mary_llrs(codeword, noise, sigma2), codeword)
+
     @property
     def _consumer(self) -> str:
         """What the decoder reads: 'clusters' (IB), 'llrs' (quantized) or
@@ -369,10 +448,14 @@ class BERSimulator:
         return "llrs" if self.llr_source == "quantized" else "true"
 
     @property
-    def channel_input_kind(self) -> str:
+    def channel_input_kind(self) -> str | None:
         """The fused kind of ``rng.channel_input`` a step runs
         (``kernels/philox_planes.py`` ``FUSED``): what ``step_from_uniform``,
-        ``step_from_normal`` or ``step_from_encoded`` builds on this chain."""
+        ``step_from_normal`` or ``step_from_encoded`` builds on this chain;
+        None on an M-ary chain, whose step draws planes and demaps with torch
+        operators (no fused kind computes the demapper)."""
+        if self.modulation != "bpsk":
+            return None
         if self.chain == "encoded":
             return f"encoded_{self._consumer}"
         return "normal_true" if self._consumer == "true" else f"uniform_{self._consumer}"
@@ -387,6 +470,10 @@ class BERSimulator:
         if self.chain == "encoded":
             info = rng.draw("bits", self._key, self._info_len, offset, batch, self.device)
             codeword = self._encode(info)
+        if self.modulation != "bpsk":
+            rows = 2 * self.layout.n_vars // self._bits_per_symbol
+            noise = rng.draw("normal", self._key, rows, offset, batch, self.device)
+            return self._decode_and_count(self.mary_llrs(codeword, noise, sigma2), codeword)
         channel_input = rng.channel_input(
             self.channel_input_kind, self._key, self.layout.n_vars, offset, batch, self.device,
             qt, sigma2, codeword,
@@ -409,7 +496,11 @@ class BERSimulator:
         engine passes it."""
         return float(np.float32(sigma2_from_ebn0_db(ebn0_db, self.layout.code_rate)))
 
-    def quantizer_for(self, ebn0_db: float) -> DeviceQuantizerTables:
+    def quantizer_for(self, ebn0_db: float) -> DeviceQuantizerTables | None:
+        """The channel quantizer's tables at ``ebn0_db`` on the device (built
+        once per point); None on an M-ary chain, which reads none."""
+        if self.modulation != "bpsk":
+            return None
         key = round(float(ebn0_db), 6)
         if key not in self._quant_cache:
             sigma2 = float(sigma2_from_ebn0_db(ebn0_db, self.layout.code_rate))
@@ -427,36 +518,58 @@ class BERSimulator:
         ebn0_db: float,
         min_errors: int = 7000,
         max_blocks: int = 10_000_000,
+        verbose: bool = False,
+        progress_every: int = 50,
+        checkpoint: PointCheckpoint | None = None,
+        on_progress: Callable[[PointCheckpoint], None] | None = None,
     ) -> PointResult:
         """Accumulate blocks until ``min_errors`` bit errors or at least
-        ``max_blocks`` blocks (whole dispatches)."""
+        ``max_blocks`` blocks (whole dispatches), from ``checkpoint`` when
+        given. After each dispatch ``on_progress`` gets the state (the sweep
+        persists it); with ``verbose`` a progress line is printed every
+        ``progress_every`` steps. Steps are keyed by their index, so a
+        resumed point counts what the uninterrupted one does."""
         qt = self.quantizer_for(ebn0_db)
-        errors = frame_errors = blocks = step_index = 0
-        iters_sum = 0.0
+        state = checkpoint or PointCheckpoint(
+            ebn0_db=float(ebn0_db), step_index=0, errors=0, frame_errors=0, blocks=0,
+            iters_sum=0.0,
+        )
         blocks_per_dispatch = self.batch_total * self.steps_per_dispatch
         start = time.time()
-        while errors < min_errors and blocks < max_blocks:
-            e, f, it = self._step(ebn0_db, step_index, qt)
-            errors += int(e)
-            frame_errors += int(f)
-            iters_sum += float(it) * blocks_per_dispatch
-            blocks += blocks_per_dispatch
-            step_index += self.steps_per_dispatch
+        while state.errors < min_errors and state.blocks < max_blocks:
+            e, f, it = self._step(ebn0_db, state.step_index, qt)
+            state.errors += int(e)
+            state.frame_errors += int(f)
+            state.blocks += blocks_per_dispatch
+            state.iters_sum += float(it) * blocks_per_dispatch
+            state.step_index += self.steps_per_dispatch
+            if verbose and state.step_index % progress_every == 0:
+                elapsed = time.time() - start
+                ber = state.errors / max(state.blocks * self.prefix_len, 1)
+                rate = state.blocks * self.layout.n_vars / max(elapsed, 1e-9)
+                eta_min = ((min_errors * elapsed / max(state.errors, 1)) - elapsed) / 60
+                print(
+                    f"EbN0={ebn0_db:.2f} dB errors={state.errors} "
+                    f"BER~{ber:.3e} coded_bps={rate:.3e} eta_min={eta_min:.1f}",
+                    flush=True,
+                )
+            if on_progress is not None:
+                on_progress(state)
         elapsed = time.time() - start
 
-        bits_counted = blocks * self.prefix_len
-        coded_bits = blocks * self.layout.n_vars
-        info_bits = blocks * self.layout.data_len
+        bits_counted = state.blocks * self.prefix_len
+        coded_bits = state.blocks * self.layout.n_vars
+        info_bits = state.blocks * self.layout.data_len
         return PointResult(
             ebn0_db=float(ebn0_db),
-            ber=errors / max(bits_counted, 1),
-            fer=frame_errors / max(blocks, 1),
-            errors=errors,
-            frame_errors=frame_errors,
-            blocks=blocks,
+            ber=state.errors / max(bits_counted, 1),
+            fer=state.frame_errors / max(state.blocks, 1),
+            errors=state.errors,
+            frame_errors=state.frame_errors,
+            blocks=state.blocks,
             bits_counted=bits_counted,
             elapsed_s=elapsed,
             coded_bits_per_s=coded_bits / max(elapsed, 1e-9),
             info_bits_per_s=info_bits / max(elapsed, 1e-9),
-            mean_iterations=iters_sum / max(blocks, 1),
+            mean_iterations=state.iters_sum / max(state.blocks, 1),
         )

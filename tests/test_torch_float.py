@@ -13,11 +13,15 @@ K2 compares with the JAX Pallas kernel in interpret mode on the 96-variable
 QC code of tests/test_float_fused.py.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from jax.experimental.compilation_cache import compilation_cache
 
 from informationbottleneckdecodingldpc_tpu.channel import quantizer as jax_quant
 from informationbottleneckdecodingldpc_tpu.codes import TannerGraph
@@ -162,6 +166,22 @@ def test_minsum_edge_cases_match_jax():
         assert _equal(float_ops.associative_leave_one_out(float_ops.min_sum_op, t), want)
 
 
+@contextlib.contextmanager
+def _compiled_here():
+    """Compile in this process, for this host, without the persistent
+    compilation cache (tests/conftest.py): its CPU key names the platform
+    'cpu' and no CPU features, so an entry left by another host is loaded as
+    it stands, and XLA's exp/log1p bits depend on the ISA it compiled for."""
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", enabled)
+        compilation_cache.reset_cache()
+
+
 def test_boxplus_within_one_ulp_of_jax():
     rng = np.random.default_rng(7)
     a = rng.uniform(-15, 15, (256, 128)).astype(np.float32)
@@ -169,7 +189,8 @@ def test_boxplus_within_one_ulp_of_jax():
     a[0, :8] = [0.0, -0.0, 1.5, -1.5, 150.0, -150.0, 1e-3, 3.0]
     b[0, :8] = [0.0, 0.0, 1.5, 1.5, -150.0, 150.0, -1e-3, -3.0]
     got = float_ops.boxplus(torch.as_tensor(a), torch.as_tensor(b)).numpy()
-    want = np.asarray(jax.jit(jax_ops.boxplus)(jnp.asarray(a), jnp.asarray(b)))
+    with _compiled_here():
+        want = np.asarray(jax.jit(jax_ops.boxplus)(jnp.asarray(a), jnp.asarray(b)))
     ulp = np.spacing(np.maximum(np.abs(want), np.float32(1.0)))
     assert np.all(np.abs(got - want) <= ulp)
 

@@ -159,6 +159,43 @@ def test_ib_lut_decode_matches_brute_force_reference(code, qc96, wlan):
         assert int(got.unsatisfied[0]) == unsat
 
 
+def test_message_syndrome_flickers_as_in_the_reference(wlan):
+    """IB early exit at 2.4 dB on WLAN |T|=16: per codeword (batch 1), the
+    port's decoder, the JAX decoder and the scalar reference of
+    tests/reference_impls.py leave after the same body, the first at which
+    the variable-to-check messages satisfy every check. The messages keep
+    moving after it: without early exit, a codeword whose syndrome was zero
+    after body 10 has 2 unsatisfied checks after body 11, in the port (the
+    counts after b bodies from a decode of b bodies) and in the reference
+    alike. A tile exits only when all its codewords are zero after the same
+    body."""
+    from reference_impls import brute_lut_decode
+
+    layout, jlayout = wlan
+    cfg, jcfg = _config("wlan_T16_0.8")
+    trellis = DeviceTrellis.from_tables(cfg.tables, "cpu")
+    H = get_model("wlan-1296").make_h().toarray()
+    sigma2 = sigma2_from_ebn0_db(2.4, 0.5)
+    qt = device_tables(build_quantizer_tables(sigma2, 3.0, 16, 2000), "cpu")
+    u = torch.as_tensor(np.random.default_rng(11).random((layout.n_vars, 4), dtype=np.float32))
+    ch = sample_clusters_from_uniform(qt.cdf, u, torch.zeros_like(u, dtype=torch.int32))
+    counts = np.array([
+        ib_lut_decode(layout, trellis, ch, max_iters=b + 1, early_exit=False).unsatisfied.tolist()
+        for b in range(1, 20)
+    ])  # [bodies, codewords]
+    for b in (0, 2, 3):
+        got = ib_lut_decode(layout, trellis, ch[:, b : b + 1])
+        first_zero = int(np.argmax(counts[:, b] == 0)) + 1
+        want = jax_ib_lut_decode(jlayout, JaxTrellis.from_tables(jcfg.tables),
+                                 jnp.asarray(ch[:, b : b + 1].numpy()))
+        _, iters, unsat = brute_lut_decode(H, cfg.tables, ch[:, b].numpy(), cfg.tables.i_max)
+        assert int(got.iterations) == first_zero == int(want.iterations) == iters < 20
+        assert unsat == 0
+    assert counts[9, 3] == 0 and counts[10, 3] == 2
+    _, iters, unsat = brute_lut_decode(H, cfg.tables, ch[:, 3].numpy(), 12, early_exit=False)
+    assert (iters, unsat) == (11, 2)
+
+
 def test_device_trellis_carries_the_tables():
     cfg, _ = _config("wlan_T16_0.8")
     tr = DeviceTrellis.from_tables(cfg.tables, "cpu")

@@ -29,6 +29,7 @@ from informationbottleneckdecodingldpc_tpu.sim.engine import PointResult as JaxP
 from informationbottleneckdecodingldpc_torch.cli import simulate
 from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
 from informationbottleneckdecodingldpc_torch.decode import DeviceTrellis
+from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
 from informationbottleneckdecodingldpc_torch.sim.engine import step_seed
@@ -148,20 +149,27 @@ def test_step_seed_depends_on_seed_snr_and_step():
 
 
 @pytest.mark.parametrize(
-    "kw, item",
+    "kw, error, match",
     [
-        (dict(modulation="mpsk"), r"item 1\)"),
-        (dict(decoder="minsum", llr_source="true", modulation="qam"), r"item 1\)"),
-        (dict(modulation="qam"), r"item 1\)"),
-        (dict(n_devices=2), r"item 3\)"),
+        # The M-ary chains are ported: what they refuse, they refuse with the
+        # JAX engine's ValueErrors.
+        (dict(modulation="qam", mod_order=4, chain="encoded", llr_source="true"), ValueError,
+         "float decoder"),  # IB with QAM
+        (dict(decoder="minsum", max_iters=5, modulation="qam", mod_order=4, chain="encoded"),
+         ValueError, "llr_source='true'"),  # quantized LLRs with QAM
+        (dict(decoder="minsum", max_iters=5, llr_source="true", modulation="mpsk", mod_order=8),
+         ValueError, "encoded chain"),  # the all-zeros chain with M-PSK
+        (dict(n_devices=2), NotImplementedError, r"item 3\)"),
     ],
 )
-def test_unported_paths_raise_naming_their_roadmap_item(wlan, kw, item):
+def test_unported_paths_raise_naming_their_roadmap_item(wlan, kw, error, match):
     layout, cfg = wlan
     args = dict(trellis=DeviceTrellis.from_tables(cfg.tables, "cpu"), device="cpu")
     decoder = kw.pop("decoder", "ib")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=item):
+    if args.get("chain") == "encoded":
+        args["encoder"] = LDPCEncoder(get_model("wlan-1296").make_h())
+    with pytest.raises(error, match=match):
         BERSimulator(layout, decoder, **args)
 
 
@@ -224,6 +232,8 @@ def test_port_imports_without_jax():
             p + "encode.gf2", p + "utils.bitpack", p + "models.zoo",
             p + "sim.rng", p + "kernels.philox_planes", p + "kernels.stage_chunks",
             p + "kernels.stage_replay", p + "utils.probes", p + "cli.probes",
+            p + "channel.demap", p + "channel.modulation", p + "sim.sweep", p + "sim.results",
+            p + "utils.profiling", p + "cli.simulate", p + "cli.ib_exit",
         } <= set(names)
         print(len(names))
         """
