@@ -13,7 +13,9 @@ draws and what the decoder reads of them) through the Philox kernel; and the
 M-ary chains (WLAN min-sum on 16-QAM and 8-PSK through the exact soft
 demapper, batch 512 x 8 steps, i_max 50) through the Philox kernel's bits
 and normal planes and K2 (K4 on DVB-S2), with the resumable sweep and the
-CLI.
+CLI; data-parallel decoding over ``torch.distributed`` (ranks as processes
+of their own, NCCL at world size 1, two gloo ranks sharing the card) and
+the port's decoder construction.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it):
@@ -186,14 +188,41 @@ CLI.
     dispatches and resumed from its saved ``partial`` counts what the
     uninterrupted point does; the CLI sweeps 8-PSK over 2 points into a
     results file, and a rerun with a higher ``--max-db`` resumes after them
-    without recomputing them; ``--export-npz`` writes the JAX keys.
+    without recomputing them; ``--export-npz`` writes the JAX keys;
+35. data parallelism over ``torch.distributed``, each rank a process of its
+    own started by ``torch.distributed.run`` after every kernel was built
+    here (a rank that fails, or
+    ranks that outlast ``RANK_TIMEOUT``, end the run): the headline in one rank
+    under an NCCL group (``n_devices=1``): one dispatch counts what phase
+    4's does (``==``), and its Mbit/s, with an all-reduce a dispatch,
+    beside phase 4's;
+36. two ranks sharing the card over gloo against one process at the global
+    batch, one dispatch each: the headline (4096 a rank, K1) and DVB-S2
+    min-sum (1024 a rank, K4) count the same errors and frame errors, mean
+    iterations within 1e-6; WLAN min-sum on ``backend='xla'`` (256 a rank x
+    4 steps at ``PAIR_XLA_DB``, early exit all-reduced after every body)
+    counts the same and runs the same bodies (``==``), leaving early;
+37. the CLI's two-rank resume on ``cuda:0`` over gloo (as
+    ``tests/test_sim.py:257-335``): rank 0 resumes from its one-point
+    results file, rank 1 (whose results path does not exist) from rank 0's
+    broadcast and writes nothing; the points equal one process's sweep at
+    the global batch;
+38. the dry run (``cli/dryrun.py``, K1) at world size 1 over NCCL; the port's
+    construction rebuilds the four committed configs on this host, each in
+    the seconds printed, every array equal to the committed file (else the
+    first differing array and element are printed and the rebuilt
+    ``wlan_T16_0.8`` must decode the headline inside phase 4's bands); a
+    headline dispatch with the rebuilt ``wlan_T16_0.8`` counts what phase
+    4's does.
 
 Each phase prints one line per check and its seconds; any failure raises and
 exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
 the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4,p5_p6}.json``.
 The last lines are the run's total seconds, the kernels' JSON record (the
-M-ary path's launches added to K2's, K4's and the planes'), the card's name
-and power limit, and the device record.
+M-ary path's launches added to K2's, K4's and the planes', phases 35, 36 and
+38's ranks' and dispatches' to K1's, K4's and the channel input's; phase
+37's CLI ranks report none), the card's name and power limit, and the
+device record.
 
 Usage: python3 chip_smoke.py
 """
@@ -500,7 +529,7 @@ def same_counters(sim, ebn0_db: float, phase: str) -> None:
     """One dispatch of ``sim`` from step 0 through the channel-input kernel
     and through its plain version on the card (``rng.channel_input_plain``
     in place of ``rng.channel_input``) counts the same bit errors, frame
-    errors and mean iterations."""
+    errors and mean iterations; returns them."""
     from informationbottleneckdecodingldpc_torch.sim import rng
 
     qt = sim.quantizer_for(ebn0_db)
@@ -518,6 +547,7 @@ def same_counters(sim, ebn0_db: float, phase: str) -> None:
     print(f"[{phase} counters] one dispatch at {ebn0_db} dB through the channel-input kernel "
           f"and through its plain version: bit errors {fused[0]:.0f}, frame errors {fused[1]:.0f}, "
           f"mean iterations {fused[2]:.4f}, equal", flush=True)
+    return fused
 
 
 def timed_plain(fn):
@@ -1168,11 +1198,265 @@ def _attribute(kernels: list[tuple[str, float]], n_map: int, n_demap: int, ms: d
     return 1
 
 
+# Phases 35-38's settings.
+RANK_TIMEOUT = 600  # seconds for all ranks of one launch
+PAIR_XLA_DB = 2.4  # WLAN min-sum, 256 codewords a rank x 4 steps: the halves alone leave
+# after other bodies than the whole batch, and one step leaves none early (CPU run)
+CLI_SWEEP = ["--model", "regular-3-6-504", "--decoder", "minsum", "--chain", "allzero",
+             "--start-db", "3.0", "--min-errors", "5", "--max-iters", "4",
+             "--max-blocks-per-point", "64"]  # tests/test_sim.py:257-335's sweep
+
+
+def rank_main(argv: list[str]) -> None:
+    """Phases 35-37, one rank of a process group on card 0, started by
+    ``torch.distributed.run`` (``python3 chip_smoke.py --rank
+    nccl|gloo-pair|cli ...``). ``nccl``: the headline through
+    ``n_devices=1`` under a one-rank NCCL group, one dispatch from step 0 and
+    its rate. ``gloo-pair``: this rank's shard of one dispatch of the
+    headline (4096 a rank), DVB-S2 min-sum (K4, 1024 a rank) and WLAN
+    min-sum on ``backend='xla'`` (256 a rank, early exit on). Both print
+    one JSON line: the rank, the all-reduced counters and this rank's
+    launches. ``cli <rank 0's results> <other ranks' results> <CLI args>``:
+    the sweep CLI with ``--multihost`` over gloo on card 0."""
+    import argparse
+    import os
+
+    from informationbottleneckdecodingldpc_torch.kernels import philox_planes
+    from informationbottleneckdecodingldpc_torch.models import get_model
+    from informationbottleneckdecodingldpc_torch.parallel import initialize_multihost
+    from informationbottleneckdecodingldpc_torch.sim import BERSimulator
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
+        build_dvbs2_sim, build_headline_sim, measure_sim_throughput)
+
+    p = argparse.ArgumentParser()
+    p.add_argument("job", choices=["nccl", "gloo-pair", "cli"])
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    a = p.parse_args(argv)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    if a.job == "cli":
+        from informationbottleneckdecodingldpc_torch.cli import simulate
+
+        results = a.args[0] if os.environ["RANK"] == "0" else a.args[1]
+        simulate.main([*a.args[2:], "--results", results, "--device", str(dev),
+                       "--dist-backend", "gloo", "--multihost"])
+        return
+    rank, _ = initialize_multihost(backend="nccl" if a.job == "nccl" else "gloo")
+    out = {"rank": rank, "backend": torch.distributed.get_backend(),
+           "launches": collections.Counter()}
+
+    def dispatch(name: str, sim, ebn0_db: float) -> None:
+        out[name] = [float(v) for v in sim._step(ebn0_db, 0, sim.quantizer_for(ebn0_db))]
+        out[f"{name}_decoder"] = type(sim.fused_decoder).__name__
+
+    philox_planes.launches.clear()
+    if a.job == "nccl":
+        sim = build_headline_sim(dev)
+        sim.fused_decoder.launches = 0
+        dispatch("headline", sim, 0.8)
+        out["mbit_s"] = measure_sim_throughput(sim, 0.8) / 1e6
+        out["launches"]["k1"] = sim.fused_decoder.launches
+    else:
+        sims = {
+            "headline": (build_headline_sim(dev, n_devices=None), 0.8),
+            "dvbs2_minsum": (build_dvbs2_sim("dvbs2_minsum", dev, n_devices=None), 1.0),
+            "xla_minsum": (BERSimulator(
+                get_model("wlan-1296").make_layout(), "minsum", device=dev, max_iters=50,
+                backend="xla", batch_per_device=256, n_devices=None, seed=0,
+                steps_per_dispatch=4), PAIR_XLA_DB),
+        }
+        for name, (sim, ebn0) in sims.items():
+            if name != "xla_minsum":
+                sim.fused_decoder.launches = 0
+            dispatch(name, sim, ebn0)
+        out["launches"]["k1"] = sims["headline"][0].fused_decoder.launches
+        out["launches"]["k4"] = sims["dvbs2_minsum"][0].fused_decoder.launches
+    out["launches"].update(philox_planes.launches)
+    torch.cuda.synchronize()
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def launch(world: int, *args: str) -> str:
+    """The standard output of ``world`` ranks of ``python3 chip_smoke.py
+    --rank <args>`` (``parallel.run_ranks``); any rank's failure raises."""
+    from informationbottleneckdecodingldpc_torch.parallel import run_ranks
+
+    return run_ranks(world, [__file__, "--rank", *args], RANK_TIMEOUT)
+
+
+def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> collections.Counter:
+    """Phases 35-38: data-parallel decoding over ``torch.distributed`` (one
+    rank under NCCL; two ranks sharing the card over gloo, against one
+    process at the global batch), the multi-process CLI's resume broadcast,
+    the dry run, and the port's decoder construction rebuilding the
+    committed configs on this host. ``headline`` holds phase 4's dispatch
+    counters and rate. Returns the ranks' launches per kernel (K1, K4 and
+    the channel-input kinds)."""
+    import os
+
+    import numpy as np
+
+    from informationbottleneckdecodingldpc_torch.cli import dryrun, simulate
+    from informationbottleneckdecodingldpc_torch.decode import DeviceTrellis
+    from informationbottleneckdecodingldpc_torch.sim import BERSimulator
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
+        COMMITTED_CONFIGS, CONFIG_DIR, build_dvbs2_sim, build_headline_sim,
+        rebuild_committed_config)
+
+    # The ranks import the package from this checkout, wherever they start.
+    root = str(Path(__file__).resolve().parent)
+    os.environ["PYTHONPATH"] = os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))
+    launched = collections.Counter()
+
+    def rank_outputs(job: str, world: int) -> list[dict]:
+        """Each rank's JSON line, in rank order."""
+        outs = sorted((json.loads(ln) for ln in launch(world, job).splitlines()
+                       if ln.startswith("{")), key=lambda o: o["rank"])
+        if [o["rank"] for o in outs] != list(range(world)):
+            raise AssertionError(f"{job}: ranks {[o['rank'] for o in outs]} reported, not {world}")
+        for o in outs:
+            launched.update(o["launches"])
+        return outs
+
+    # -- 35: the NCCL path at world size 1 ---------------------------------------------
+    (one,) = rank_outputs("nccl", 1)
+    if one["backend"] != "nccl" or one["headline_decoder"] != "FusedIBDecoder":
+        raise AssertionError(f"phase 35 ran {one['headline_decoder']} over {one['backend']}")
+    if one["headline"] != headline["dispatch"]:
+        raise AssertionError(f"one rank under NCCL counts {one['headline']}, phase 4's process "
+                             f"{headline['dispatch']}")
+    print(f"[35 nccl] the headline (4096 x 8, 0.8 dB) in one rank under an NCCL group, "
+          f"n_devices=1: one dispatch from step 0 counts bit errors {one['headline'][0]:.0f}, frame "
+          f"errors {one['headline'][1]:.0f}, mean iterations {one['headline'][2]:.4f}, equal to "
+          f"phase 4's; {one['mbit_s']:.2f} Mbit/s coded with an all-reduce a dispatch (phase 4 "
+          f"{headline['mbit_s']:.2f}); launches {json.dumps(one['launches'])} on {card}", flush=True)
+    lap(35)
+
+    # -- 36: two ranks sharing the card over gloo, against one process at the global batch --
+    pair = rank_outputs("gloo-pair", 2)
+    refs = {
+        "headline": (build_headline_sim(dev, batch_per_device=8192), 0.8),
+        "dvbs2_minsum": (build_dvbs2_sim("dvbs2_minsum", dev, layout=dv_layout,
+                                         batch_per_device=2048), 1.0),
+        "xla_minsum": (BERSimulator(layout, "minsum", device=dev, max_iters=50, backend="xla",
+                                    batch_per_device=512, seed=0, steps_per_dispatch=4),
+                       PAIR_XLA_DB),
+    }
+    for name, (sim, ebn0) in refs.items():
+        want = [float(v) for v in sim._step(ebn0, 0, sim.quantizer_for(ebn0))]
+        batch = sim.batch_per_device
+        refs[name] = None  # free the reference's device memory
+        del sim
+        got = pair[0][name]
+        if pair[1][name] != got:
+            raise AssertionError(f"{name}: the ranks' all-reduced counters differ: "
+                                 f"{got} and {pair[1][name]}")
+        iters_equal = (got[2] == want[2] if name == "xla_minsum"
+                       else abs(got[2] - want[2]) <= 1e-6 * want[2])
+        if got[:2] != want[:2] or not iters_equal:
+            raise AssertionError(f"{name}: two ranks count {got}, one process {want}")
+        if name == "xla_minsum" and not want[2] < 49:
+            raise AssertionError("the whole-batch min-sum left no step early: the lockstep exit "
+                                 "went untested")
+        print(f"[36 pair] {name} ({pair[0][f'{name}_decoder']}) at {ebn0} dB, 2 gloo ranks x "
+              f"{batch // 2} on one card: bit errors {got[0]:.0f}, frame errors "
+              f"{got[1]:.0f}, mean iterations {got[2]:.6f}; one process at {batch}: "
+              f"{want[0]:.0f}, {want[1]:.0f}, {want[2]:.6f}", flush=True)
+    torch.cuda.empty_cache()
+    lap(36)
+
+    # -- 37: the multi-process CLI's resume broadcast on the card --------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        res0, ref, absent = (str(Path(tmp) / n) for n in ("mh2.json", "ref.json", "absent.json"))
+        one_process = CLI_SWEEP + ["--device", str(dev), "--batch-per-device", "16"]
+        if len(simulate.main(one_process + ["--max-db", "3.0", "--results", res0])) != 1:
+            raise AssertionError("the one-point sweep did not write one point")
+        ref_points = simulate.main(one_process + ["--max-db", "3.1", "--results", ref])
+        so = launch(2, "cli", res0, absent, *CLI_SWEEP, "--batch-per-device", "8",
+                    "--max-db", "3.1")
+        resumed = so.count("resuming sweep from the given state: 1 completed points")
+        if any(f"multihost: process {r}/2" not in so for r in range(2)) or resumed != 2:
+            raise AssertionError(f"the ranks did not both resume from the broadcast state: {so}")
+        if os.path.exists(absent):
+            raise AssertionError("rank 1 wrote its results file")
+        got = json.loads(Path(res0).read_text())["points"]
+        keys = ("ebn0_db", "errors", "frame_errors", "blocks")
+        if [[p[k] for k in keys] for p in got] != [[p[k] for k in keys] for p in ref_points]:
+            raise AssertionError(f"the resumed two-rank sweep wrote {got}, one process {ref_points}")
+    print(f"[37 cli] regular-3-6-504 min-sum sweep, 2 gloo ranks x 8 on {dev} resumed from rank "
+          f"0's one-point file (rank 1's path absent, left unwritten): points "
+          f"{[[p[k] for k in keys] for p in got]} (Eb/N0, bit errors, frame errors, blocks) equal "
+          f"to one process at batch 16", flush=True)
+    lap(37)
+
+    # -- 38: the dry run at world size 1 over NCCL, and the port's construction ------------
+    line = dryrun.main(["--world", "1", "--device", "cuda", "--timeout", str(RANK_TIMEOUT)])
+    m = re.search(r"nccl; kernel launches (\d+), channel-input launches (\d+)\)$", line)
+    if not line.startswith("dryrun_multichip(1): ok") or not m or int(m.group(1)) == 0:
+        raise AssertionError(f"the dry run printed {line!r}")
+    launched.update(k1=int(m.group(1)), uniform_clusters=int(m.group(2)))
+    print(f"[38 dryrun] {line}", flush=True)
+    fresh, mismatched = None, []
+    for name in COMMITTED_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = rebuild_committed_config(name)
+        seconds = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg.save(str(Path(tmp) / "x.npz"))
+            with np.load(Path(tmp) / "x.npz") as z, np.load(CONFIG_DIR / f"{name}.npz") as w:
+                if set(z.files) != set(w.files):
+                    raise AssertionError(f"{name}: keys {sorted(set(z.files) ^ set(w.files))} differ")
+                diff = next((k for k in w.files if not np.array_equal(z[k], w[k])), None)
+                if diff is not None:
+                    mismatched.append(name)
+                    got, want = z[diff], w[diff]
+                    if got.shape != want.shape:
+                        where = f"shape {got.shape} against {want.shape}"
+                    else:
+                        i = tuple(np.argwhere(got != want)[0])
+                        where = f"first at {i}: {got[i]!r} against {want[i]!r}"
+                    print(f"[38 construct] {name}: built in {seconds:.2f} s on this host; array "
+                          f"{diff} differs from the committed file, {where}", flush=True)
+        if diff is None:
+            print(f"[38 construct] {name}: built in {seconds:.2f} s on this host, every array equal "
+                  "to the committed file", flush=True)
+        if name == "wlan_T16_0.8":
+            fresh = cfg
+    sim = build_headline_sim(dev, trellis=DeviceTrellis.from_tables(fresh.tables, dev))
+    sim.fused_decoder.launches = 0
+    from informationbottleneckdecodingldpc_torch.kernels import philox_planes
+
+    philox_planes.launches.clear()
+    if "wlan_T16_0.8" not in mismatched:
+        counts = [float(v) for v in sim._step(0.8, 0, sim.quantizer_for(0.8))]
+        if counts != headline["dispatch"]:
+            raise AssertionError(f"the rebuilt config's headline dispatch counts {counts}, phase "
+                                 f"4's {headline['dispatch']}")
+        print(f"[38 headline] one headline dispatch with the config built here counts {counts}, "
+              "equal to phase 4's", flush=True)
+    else:
+        # Construction differed on this host: the decoder built here is held to
+        # phase 4's bands instead (fixed before any run, not after it).
+        point = sim.run_point(0.8, min_errors=10**12, max_blocks=8192)
+        if abs(point.fer - 0.666) > 0.07 or abs(point.ber - 0.0745) > 0.15 * 0.0745:
+            raise AssertionError(f"the config built here decodes FER {point.fer}, BER {point.ber} "
+                                 "at 0.8 dB, outside phase 4's bands")
+        print(f"[38 headline] the config built here at 0.8 dB over {point.blocks} blocks: FER "
+              f"{point.fer:.4f} (0.666 +- 0.07), BER {point.ber:.5f} (0.0745 +- 15%)", flush=True)
+    launched.update(k1=sim.fused_decoder.launches, **philox_planes.launches)
+    lap(38)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
     if sys.argv[1:2] == ["--mary-profile"]:  # phase 33's own process
         print(json.dumps(mary_profile(float(sys.argv[2]))))
+        return
+    if sys.argv[1:2] == ["--rank"]:  # a rank of phases 35-37
+        rank_main(sys.argv[2:])
         return
     started = time.perf_counter()
     card = nvidia_smi()
@@ -1365,7 +1649,7 @@ def main() -> None:
     print(f"[4 headline] {rate / 1e6:.2f} Mbit/s coded on {card}; "
           f"{launches} K1 and {main_counts['uniform_clusters']} channel-input (uniform -> "
           f"clusters) launches for {steps} steps, no uniform plane", flush=True)
-    same_counters(sim, 0.8, "4")
+    headline = {"dispatch": same_counters(sim, 0.8, "4"), "mbit_s": rate / 1e6}
     fer_ok = abs(point.fer - 0.666) <= 0.07
     ber_ok = abs(point.ber - 0.0745) <= 0.15 * 0.0745
     print(f"[4 point] 0.8 dB: {point.blocks} blocks, FER {point.fer:.4f} "
@@ -2127,6 +2411,16 @@ def main() -> None:
     print(f"[mary] launches on the M-ary path: {json.dumps(dict(mary['launches']))}; QAM-16 "
           f"{mary['qam16_mbit_s']:.2f}, 8-PSK {mary['psk8_mbit_s']:.2f}, DVB-S2 QAM-16 "
           f"{mary['dvbs2_qam16_mbit_s']:.2f} Mbit/s coded on {card}", flush=True)
+    # The data-parallel path's launches (phases 35, 36 and 38, counted in
+    # their ranks and dispatches) join each kernel's count.
+    parallel = parallel_phases(dev, card, lap, headline, layout, dv_layout)
+    parallel_kernels = {"ib_lut_fused": "k1", "float_hbm_minsum": "k4",
+                        "channel_input_uniform_clusters": "uniform_clusters",
+                        "channel_input_uniform_llrs": "uniform_llrs"}
+    for r in records:
+        if r["name"] in parallel_kernels:
+            r["launches"] += parallel[parallel_kernels[r["name"]]]
+    print(f"[parallel] launches in phases 35, 36 and 38: {json.dumps(dict(parallel))}", flush=True)
     print(f"[total seconds] {time.perf_counter() - started:.1f}", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in (*KERNEL_KEYS, "note") if k in r} for r in records

@@ -9,10 +9,21 @@ resumes after the last completed point. ``--modulation qam<M>|psk<M>`` runs
 the encoded chain through the QAM or M-PSK map and the exact soft demapper
 into a float decoder (it implies ``--llr-source true``). ``--trace-dir``
 writes a ``torch.profiler`` trace of the sweep. The default device is
-``cuda``; without a card the run raises. One device only: the JAX CLI's
-multi-process flags (``--multihost``, ``--coordinator-address``,
-``--num-processes``, ``--process-id``, ``--n-devices``) belong to the
-multi-GPU port and are left out.
+``cuda``; without a card the run raises.
+
+``--multihost`` runs the sweep data-parallel, one process per card: each
+process joins the ``torch.distributed`` group (``--coordinator-address
+host:port``, ``--num-processes``, ``--process-id``, or the ``MASTER_ADDR``
+/ ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE`` environment) and prints
+``multihost: process r/world``; rank r decodes its ``--batch-per-device``
+shard of each step and the counters are all-reduced. The backend follows
+the device (``nccl`` for CUDA, ``gloo`` for the CPU) unless
+``--dist-backend`` names one (``gloo`` lets several ranks share one card).
+A rank's device is ``cuda:<LOCAL_RANK mod cards>`` (``LOCAL_RANK`` defaults
+to the rank) unless ``--device`` names one. Process 0 reads the results
+file and broadcasts it, so every rank resumes from the same state; only
+process 0 writes results, checkpoints and exports. ``--n-devices`` must be
+the world size when given.
 
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.simulate \\
@@ -31,6 +42,12 @@ Usage:
       --model dvbs2-64800 --config results/configs/dvbs2_T16_0.6.npz \\
       --chain encoded --start-db 0.9 --max-db 1.1 --batch-per-device 1024 \\
       --results dvbs2_ib.json
+  # two gloo ranks on the CPU, each decoding 8 of a step's 16 codewords:
+  python -m torch.distributed.run --standalone --nproc-per-node 2 \\
+      -m informationbottleneckdecodingldpc_torch.cli.simulate \\
+      --model regular-3-6-504 --decoder minsum --device cpu --max-iters 4 \\
+      --start-db 3.0 --max-db 3.1 --min-errors 5 --batch-per-device 8 \\
+      --max-blocks-per-point 64 --results mh.json --multihost
 
 DVB-S2 N=64800 does not fit the shared-memory kernels, so the engine's
 ``backend='auto'`` decodes it with the device-memory kernels K3 (IB) and K4
@@ -40,13 +57,18 @@ DVB-S2 N=64800 does not fit the shared-memory kernels, so the engine's
 from __future__ import annotations
 
 import argparse
+import json
 import math
+import os
 import re
+
+import torch
 
 from ..construct import DecoderConfig
 from ..decode import DeviceTrellis
 from ..encode import LDPCEncoder
 from ..models import get_model
+from ..parallel.mesh import default_backend, initialize_multihost, make_mesh
 from ..sim import BERSimulator, SweepController, SweepSchedule
 from ..sim.engine import resolve_device
 from ..sim.results import export_mat, export_npz, export_plot
@@ -107,10 +129,38 @@ def main(argv=None) -> list[dict]:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler Chrome trace of the sweep here")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None,
+                   help="default: cuda (with --multihost cuda:<LOCAL_RANK mod cards>)")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="the world size (default: the process group's, 1 without one)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torch.distributed group first (one process per card)")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0's rendezvous (default: MASTER_ADDR/MASTER_PORT)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="default: nccl for a CUDA device, gloo for the CPU")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device or "cuda")
+    is_primary, resume_state = True, None
+    if args.multihost:
+        rank, world = initialize_multihost(
+            args.coordinator_address, args.num_processes, args.process_id,
+            args.dist_backend or default_backend(device),
+        )
+        if device.type == "cuda" and args.device is None:
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            device = torch.device("cuda", local % torch.cuda.device_count())
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        print(f"multihost: process {rank}/{world}", flush=True)
+        is_primary = rank == 0
+        if world > 1:
+            # Every rank must run the same sweep (each dispatch all-reduces),
+            # so all resume from process 0's results file.
+            resume_state = broadcast_resume_state(make_mesh(world, device), args.results)
     spec = get_model(args.model)
     H = spec.make_h()
     trellis = None
@@ -143,6 +193,7 @@ def main(argv=None) -> list[dict]:
         count_all_bits=spec.count_all_bits and args.chain == "allzero",
         cardinality_t_channel=cardinality_t_channel,
         batch_per_device=args.batch_per_device or spec.batch_hint,
+        n_devices=args.n_devices,
         early_exit=not args.no_early_exit,
         encoder=encoder,
         seed=args.seed,
@@ -158,14 +209,29 @@ def main(argv=None) -> list[dict]:
            if args.max_blocks_per_point else {}),
     )
     with device_trace(args.trace_dir):
-        results = SweepController(sim, sched, results_path=args.results).run()
-    if args.export_npz:
-        export_npz(args.export_npz, results)
-    if args.export_mat:
-        export_mat(args.export_mat, results, decoder_name=args.model)
-    if args.export_plot:
-        export_plot(args.export_plot, results, label=f"{args.model}/{args.decoder}")
+        results = SweepController(
+            sim, sched, results_path=args.results, write_results=is_primary,
+            resume_state=resume_state,
+        ).run()
+    if is_primary:
+        if args.export_npz:
+            export_npz(args.export_npz, results)
+        if args.export_mat:
+            export_mat(args.export_mat, results, decoder_name=args.model)
+        if args.export_plot:
+            export_plot(args.export_plot, results, label=f"{args.model}/{args.decoder}")
     return [r.to_dict() for r in results]
+
+
+def broadcast_resume_state(mesh, results_path: str) -> dict:
+    """Process 0's results file (its completed points and the point in
+    progress) on every rank, as length-prefixed uint8 (``{}`` when process 0
+    has none)."""
+    payload = b"{}"
+    if mesh.rank == 0 and os.path.exists(results_path):
+        with open(results_path, "rb") as f:
+            payload = f.read()
+    return json.loads(mesh.broadcast_bytes(payload).decode())
 
 
 if __name__ == "__main__":

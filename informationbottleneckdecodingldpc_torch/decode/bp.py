@@ -16,12 +16,15 @@ def belief_propagation_decode(
     channel_llrs: torch.Tensor,
     max_iters: int,
     early_exit: bool = True,
+    convergence_reduce=None,
 ) -> DecodeResult:
-    """Decode [n_vars, batch] channel LLRs with sum-product (box-plus) BP."""
+    """Decode [n_vars, batch] channel LLRs with sum-product (box-plus) BP
+    (``convergence_reduce``: as in ``run_message_passing_loop``)."""
     return float_decode(
         layout,
         channel_llrs,
         max_iters,
         cn_update=lambda msgs, grp: cn_boxplus_leave_one_out(msgs),
         early_exit=early_exit,
+        convergence_reduce=convergence_reduce,
     )

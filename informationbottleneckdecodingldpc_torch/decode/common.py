@@ -115,20 +115,25 @@ def run_message_passing_loop(
     batch: int,
     device: torch.device | str,
     early_exit: bool = True,
+    convergence_reduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ):
     """Run ``body(state, i) -> (state, unsatisfied_per_codeword)`` at most
     ``max_inner_iters`` times, stopping early (when ``early_exit``) once no
     codeword has an unsatisfied check. The convergence test reads the count
-    back to the host after each body.
+    back to the host after each body. ``convergence_reduce`` maps the
+    per-codeword unconverged flags (int32) to a count, which must be 0 to
+    stop; the data-parallel engine passes one that sums over every rank
+    (``parallel.psum_convergence_reduce``), so all ranks stop together.
 
     Returns (final_state, iterations_run as an int32 scalar tensor,
     last unsatisfied counts, all ones if no body ran)."""
+    reduce = convergence_reduce or (lambda u: u.sum())
     state = init_state
     unsat = torch.ones(batch, dtype=torch.int32, device=device)
     i = 0
     while i < max_inner_iters:
         state, unsat = body(state, i)
         i += 1
-        if early_exit and not bool((unsat > 0).any()):
+        if early_exit and not bool(reduce((unsat > 0).to(torch.int32)) > 0):
             break
     return state, torch.tensor(i, dtype=torch.int32, device=device), unsat

@@ -34,10 +34,12 @@ def float_decode(
     max_iters: int,
     cn_update: Callable,
     early_exit: bool = True,
+    convergence_reduce: Callable | None = None,
 ) -> DecodeResult:
     """Decode [n_vars, batch] channel LLRs on their device with the check
     rule ``cn_update(msgs[d, n, batch], group)``; float32 posterior LLRs,
-    the int32 iteration count and per-codeword unsatisfied checks."""
+    the int32 iteration count and per-codeword unsatisfied checks.
+    ``convergence_reduce``: as in :func:`run_message_passing_loop`."""
     device = channel_llrs.device
     idx = layout.tensors(device)
     llrs = channel_llrs.to(torch.float32)
@@ -62,6 +64,7 @@ def float_decode(
         batch=llrs.shape[-1],
         device=device,
         early_exit=early_exit,
+        convergence_reduce=convergence_reduce,
     )
     outs = [
         ch + sum_planes(group_planes(vn_view, grp))

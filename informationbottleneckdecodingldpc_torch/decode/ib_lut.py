@@ -97,10 +97,12 @@ def ib_lut_decode(
     channel_clusters: torch.Tensor,
     max_iters: int | None = None,
     early_exit: bool = True,
+    convergence_reduce=None,
 ) -> DecodeResult:
     """Decode [n_vars, batch] channel clusters on ``trellis.device``; returns
     int32 cluster outputs, the int32 iteration count and per-codeword
-    unsatisfied checks."""
+    unsatisfied checks (``convergence_reduce``: as in
+    ``run_message_passing_loop``)."""
     imax = max_iters if max_iters is not None else trellis.i_max
     if imax > trellis.i_max:
         raise ValueError("max_iters exceeds constructed i_max")
@@ -166,6 +168,7 @@ def ib_lut_decode(
         batch=ch.shape[-1],
         device=device,
         early_exit=early_exit,
+        convergence_reduce=convergence_reduce,
     )
 
     # Decision mapping with the VN tables of iteration ``iters``.

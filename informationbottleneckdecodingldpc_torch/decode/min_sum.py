@@ -15,12 +15,15 @@ def min_sum_decode(
     channel_llrs: torch.Tensor,
     max_iters: int,
     early_exit: bool = True,
+    convergence_reduce=None,
 ) -> DecodeResult:
-    """Decode [n_vars, batch] channel LLRs with the min-sum rule."""
+    """Decode [n_vars, batch] channel LLRs with the min-sum rule
+    (``convergence_reduce``: as in ``run_message_passing_loop``)."""
     return float_decode(
         layout,
         channel_llrs,
         max_iters,
         cn_update=lambda msgs, grp: cn_minsum_leave_one_out(msgs),
         early_exit=early_exit,
+        convergence_reduce=convergence_reduce,
     )

@@ -1,8 +1,9 @@
-"""Monte-Carlo BER engine on one device: the BPSK and M-ary chains, resumable.
+"""Monte-Carlo BER engine: the BPSK and M-ary chains, resumable, on one
+device or data-parallel over ``torch.distributed``.
 
 Port of ``sim/engine.py`` for ``decoder`` in ``ib | minsum | bp``, ``chain``
 in ``allzero | encoded``, ``llr_source`` in ``quantized | true``,
-``modulation`` in ``bpsk | qam | mpsk``, one device. Each step draws its
+``modulation`` in ``bpsk | qam | mpsk``. Each step draws its
 random planes, builds the channel input, decodes (the kernels on a CUDA
 device and their plain twins on the CPU, or with ``backend='xla'`` the plain
 whole-batch decoders on either) and counts bit and frame errors over the
@@ -41,6 +42,17 @@ operators. The encoded chain's info bits are a plane of the same kernel,
 encoded on the device. An M-ary step draws its info bits and a normal plane
 of 2 n_vars / k rows (row 2s + c is component c of symbol s), each a plane
 of that kernel; the map and the demap run as torch operators.
+
+Data parallelism (the JAX engine's ``shard_map`` path) is one process per
+card (``parallel/mesh.py``): in a process group of ``world`` ranks, rank r
+draws and decodes codewords [r B, (r + 1) B) of each step's global batch of
+B world (``batch_per_device`` B), so a step counts what one process at the
+global batch counts. Each dispatch's (errors, frame errors, mean iterations)
+are all-reduced once, the mean iterations being the mean of the ranks'
+means as in JAX (``psum(iters) / n_devices``); every rank therefore leaves
+``run_point``'s loop after the same dispatch. With ``backend='xla'`` the
+whole-batch decoders' early exit is all-reduced after every body, so all
+ranks run the same bodies; the kernels exit per tile of their rank's shard.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from ..encode.encoder import device_encoder
 from ..kernels import float_fused, ib_lut_fused
 from ..kernels.float_hbm import HBMFloatDecoder
 from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
+from ..parallel.mesh import make_mesh, psum_convergence_reduce
 from . import rng
 
 # The decoder classes of each backend, IB then float.
@@ -142,8 +155,9 @@ class WholeBatchDecoder:
     ``min_sum_decode`` or ``belief_propagation_decode``) on the simulator's
     device, the counterpart of the JAX engine's XLA path. The whole batch
     runs in lockstep and exits early together, when no codeword has an
-    unsatisfied check. ``calls`` counts decodes (it launches no kernel of
-    its own)."""
+    unsatisfied check (of any rank, with the data-parallel engine's
+    ``convergence_reduce``). ``calls`` counts decodes (it launches no kernel
+    of its own)."""
 
     def __init__(
         self,
@@ -152,12 +166,14 @@ class WholeBatchDecoder:
         max_iters: int,
         early_exit: bool,
         trellis: DeviceTrellis | None = None,
+        convergence_reduce=None,
     ):
         self.layout = layout
         self.decoder = decoder
         self.max_iters = max_iters
         self.early_exit = early_exit
         self.trellis = trellis
+        self.convergence_reduce = convergence_reduce
         self.calls = 0
 
     def __call__(self, channel_input: torch.Tensor) -> DecodeResult:
@@ -166,13 +182,16 @@ class WholeBatchDecoder:
             return ib_lut_decode(
                 self.layout, self.trellis, channel_input,
                 max_iters=self.max_iters, early_exit=self.early_exit,
+                convergence_reduce=self.convergence_reduce,
             )
         fn = min_sum_decode if self.decoder == "minsum" else belief_propagation_decode
-        return fn(self.layout, channel_input, self.max_iters, early_exit=self.early_exit)
+        return fn(self.layout, channel_input, self.max_iters, early_exit=self.early_exit,
+                  convergence_reduce=self.convergence_reduce)
 
 
 class BERSimulator:
-    """BER simulator for one (code, decoder) pair on one device.
+    """BER simulator for one (code, decoder) pair on one device, or on one
+    rank of a data-parallel process group.
 
     ``decoder`` is 'ib' (needs ``trellis``) or 'minsum' / 'bp' (need
     ``max_iters``). ``backend`` picks the decoder: 'fused' the shared-memory
@@ -203,6 +222,12 @@ class BERSimulator:
     exact demapper's LLRs; the JAX engine's conditions hold (a float decoder,
     ``llr_source='true'``, the encoded chain, ``n_vars`` a multiple of the
     bits per symbol) and raise ``ValueError`` otherwise.
+
+    ``n_devices`` is the world size of the initialised process group
+    (``parallel.initialize_multihost``), 1 without one; None takes it and any
+    other value raises ``ValueError``. Each rank decodes ``batch_per_device``
+    codewords of a step's ``batch_total`` from ``offset`` on; the counters
+    every dispatch returns are the global batch's on every rank.
     """
 
     def __init__(
@@ -220,7 +245,7 @@ class BERSimulator:
         ad_max_abs: float = 3.0,
         cardinality_y_channel: int = 2000,
         batch_per_device: int = 128,
-        n_devices: int = 1,
+        n_devices: int | None = 1,
         early_exit: bool = True,
         encoder=None,
         seed: int = 0,
@@ -230,10 +255,6 @@ class BERSimulator:
         mod_order: int = 2,
         backend: str = "auto",
     ):
-        if n_devices != 1:
-            raise NotImplementedError(
-                "more than one device is not ported yet (ROADMAP item 3)"
-            )
         if decoder not in ("ib", "minsum", "bp"):
             raise ValueError(f"unknown decoder {decoder!r}")
         if chain not in ("allzero", "encoded"):
@@ -265,6 +286,8 @@ class BERSimulator:
             self._bits_per_symbol = k
             self._encoding_table = gray_encoding_table(k // 2 if modulation == "qam" else k)
         self.device = resolve_device(device)
+        self.mesh = make_mesh(n_devices, self.device)
+        self.n_devices = self.mesh.world
         if modulation != "bpsk":
             self._constellation = Constellation.build(
                 modulation, self.mod_order, self._encoding_table, self.device)
@@ -290,7 +313,8 @@ class BERSimulator:
         self.ad_max_abs = float(ad_max_abs)
         self.cardinality_y_channel = int(cardinality_y_channel)
         self.batch_per_device = int(batch_per_device)
-        self.batch_total = self.batch_per_device
+        self.batch_total = self.batch_per_device * self.n_devices
+        self.offset = self.mesh.rank * self.batch_per_device  # this rank's first codeword
         self.early_exit = bool(early_exit)
         self.seed = int(seed)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
@@ -307,8 +331,9 @@ class BERSimulator:
             if batch_tile is not None:
                 raise ValueError("backend='xla' decodes the whole batch; it takes no batch_tile")
             self.backend = backend
+            reduce = psum_convergence_reduce(self.mesh) if self.mesh.group is not None else None
             self.fused_decoder = WholeBatchDecoder(
-                layout, decoder, self.max_iters, self.early_exit, trellis
+                layout, decoder, self.max_iters, self.early_exit, trellis, reduce
             )
             return
         fits = fused_fits(layout, trellis.host if decoder == "ib" else None)
@@ -465,7 +490,7 @@ class BERSimulator:
         key ``_step`` set: (bit errors, frame errors, iterations). One
         ``rng.channel_input`` call gives the decoder's input; the encoded
         chain first draws its info bits and encodes them."""
-        batch = self.batch_total
+        batch = self.batch_per_device
         codeword = None
         if self.chain == "encoded":
             info = rng.draw("bits", self._key, self._info_len, offset, batch, self.device)
@@ -482,14 +507,26 @@ class BERSimulator:
 
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
         """``steps_per_dispatch`` blocks from ``step_index`` on, without a
-        host sync: summed errors and frame errors, mean iterations."""
+        host sync: summed errors and frame errors, mean iterations. In a
+        process group they are this rank's shard's, all-reduced into the
+        global batch's (:meth:`_all_reduce`)."""
         sigma2 = self.sigma2_for(ebn0_db)
         e = f = it = None
         for j in range(self.steps_per_dispatch):
             self._key = rng.key_words(step_seed(self.seed, ebn0_db, step_index + j))
-            de, df, dit = self._draw_step(qt, sigma2)
+            de, df, dit = self._draw_step(qt, sigma2, self.offset)
             e, f, it = (de, df, dit) if e is None else (e + de, f + df, it + dit)
-        return e, f, it / self.steps_per_dispatch
+        return self._all_reduce(e, f, it / self.steps_per_dispatch)
+
+    def _all_reduce(self, e: torch.Tensor, f: torch.Tensor, it: torch.Tensor):
+        """One dispatch's counters over all ranks, one all-reduce of one
+        float64 tensor (exact for counts below 2^53): summed errors and frame
+        errors and the ranks' mean of ``it``. Without a process group they
+        are returned as they are."""
+        if self.mesh.group is None:
+            return e, f, it
+        total = self.mesh.all_reduce(torch.stack([e.double(), f.double(), it.double()]))
+        return total[0].long(), total[1].long(), total[2] / self.n_devices
 
     def sigma2_for(self, ebn0_db: float) -> float:
         """The noise variance at ``ebn0_db``, rounded to float32 as the JAX

@@ -129,6 +129,33 @@ MATRIX = {
 }
 
 CONFIG_DIR = Path(__file__).resolve().parents[2] / "results" / "configs"
+# The committed decoder configs in CONFIG_DIR -> the model whose code each was built for.
+COMMITTED_CONFIGS = {
+    "wlan_T16_0.8": "wlan-1296",
+    "wlan_T32_0.6": "wlan-1296",
+    "regular_T16_1.05": "regular-3-6-8000",
+    "dvbs2_T16_0.6": "dvbs2-64800",
+}
+
+
+def rebuild_committed_config(name: str):
+    """The port's construction of the committed config ``name`` from the
+    settings saved in it (design Eb/N0, channel range, cardinalities, i_max)
+    and its model's code (its degrees, or its check matrix when irregular)."""
+    from ..construct import DecoderConfig, build_decoder_config
+    from ..models import get_model
+
+    ref = DecoderConfig.load(str(CONFIG_DIR / f"{name}.npz"))
+    spec, t = get_model(COMMITTED_CONFIGS[name]), ref.tables
+    kw = dict(design_ebn0_db=ref.design_ebn0_db, ad_max_abs=ref.ad_max_abs,
+              cardinality_y_channel=ref.cardinality_y_channel,
+              cardinality_t_channel=t.cardinality_t_channel,
+              cardinality_t_decoder=t.cardinality_t_decoder, i_max=t.i_max)
+    if spec.irregular:
+        kw["H"] = spec.make_h()
+    else:
+        kw.update(d_v=spec.d_v, d_c=spec.d_c)
+    return build_decoder_config(**kw)
 
 
 def measure_sim_throughput(sim, ebn0_db: float, dispatches: int = 6) -> float:
@@ -271,8 +298,10 @@ def build_matrix_sim(name: str, device: torch.device | str, codes: dict | None =
     return sim, sc.get("ebn0", spec.design_ebn0_db), tables
 
 
-def build_headline_sim(device: torch.device | str):
-    """The headline BERSimulator on ``device``."""
+def build_headline_sim(device: torch.device | str, **overrides):
+    """The headline BERSimulator on ``device``; ``overrides`` replace its
+    keyword arguments (``batch_per_device``, ``n_devices`` for a rank of a
+    data-parallel group)."""
     from ..construct import DecoderConfig
     from ..decode import DeviceTrellis
     from ..models import get_model
@@ -280,9 +309,7 @@ def build_headline_sim(device: torch.device | str):
 
     spec = get_model(HEADLINE["model"])
     cfg = DecoderConfig.load(str(CONFIG_DIR / f"{HEADLINE['config']}.npz"))
-    return BERSimulator(
-        spec.make_layout(),
-        HEADLINE["decoder"],
+    kw = dict(
         trellis=DeviceTrellis.from_tables(cfg.tables, device),
         device=device,
         cardinality_t_channel=cfg.tables.cardinality_t_channel,
@@ -292,6 +319,7 @@ def build_headline_sim(device: torch.device | str):
         seed=0,
         steps_per_dispatch=HEADLINE["steps_per_dispatch"],
     )
+    return BERSimulator(spec.make_layout(), HEADLINE["decoder"], **{**kw, **overrides})
 
 
 def build_float_sim(name: str, device: torch.device | str):
@@ -314,10 +342,11 @@ def build_float_sim(name: str, device: torch.device | str):
     )
 
 
-def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=None):
+def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=None,
+                    **overrides):
     """The BERSimulator of ``DVBS2_SCENARIOS[name]`` on ``device``; a
     prebuilt DVB-S2 ``layout`` and host ``encoder`` save their few seconds of
-    host work."""
+    host work; ``overrides`` replace its keyword arguments."""
     from ..construct import DecoderConfig
     from ..decode import DeviceTrellis
     from ..encode import LDPCEncoder
@@ -338,9 +367,7 @@ def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=
             trellis=DeviceTrellis.from_tables(tables, device),
             cardinality_t_channel=tables.cardinality_t_channel,
         )
-    return BERSimulator(
-        layout,
-        sc["decoder"],
+    kw.update(
         device=device,
         chain=sc["chain"],
         encoder=encoder if encoded else None,
@@ -349,5 +376,5 @@ def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=
         seed=sc["seed"],
         steps_per_dispatch=sc["steps_per_dispatch"],
         backend=sc["backend"],
-        **kw,
     )
+    return BERSimulator(layout, sc["decoder"], **{**kw, **overrides})
