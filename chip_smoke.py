@@ -96,9 +96,10 @@ the port's decoder construction.
     and K4 BP from ``torch.profiler``, K4 with early exit held to one CN,
     exit and VN launch per body and one syndrome pass;
 16. the peak microkernels K5 (``csrc/peaks.cu``) and the copy K6
-    (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills; the
-    FP32-pipe and SFU instructions of one box-plus in K5c's chain loop
-    (``cuobjdump -sass``) beside the roofline's count;
+    (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills; each
+    K5c op's instructions per application in its chain loop (``cuobjdump
+    -sass``) by pipe class and issue beside the roofline's count, and its
+    busiest class;
 17. each K5 variant (1-D lookups, 2-D lookups with the tables shared by a
     block and copied per lane, each at |T| 16 and 32; the four float ops)
     against its plain version on the card, equal (``==``), at 16 loops over
@@ -106,7 +107,7 @@ the port's decoder construction.
     pass and over 256 MB + 12,345 bytes (not a whole number of its chunks),
     each timed;
 18. the peaks (lookups/s, float op applications/s, each against its
-    data-sheet rate) and K6's copy bandwidth against ``copy_`` and the data
+    per-pipe bound: the busiest of its classes and the issue limit) and K6's copy bandwidth against ``copy_`` and the data
     sheet's 3.35 TB/s (above 1.05 x that the byte count is wrong: raise);
 19. the regular (3,6) N=8000 code: K1 (tile 4, i_max 250 cut to 20 for the
     twin) and K2 (one codeword per CTA) bit-exact against their twins; IB
@@ -130,12 +131,16 @@ the port's decoder construction.
     the plain version, each timed (``x.sum()`` beside seq); then the entry
     point's P2/P3, each rate against 3.35 TB/s and ``copy_`` of phase 18
     (above 1.05 x 3.35 TB/s the byte count is wrong: raise);
-24. P4, scatter and stage at 512 B, 16 KB and 128 KB on one block, at 512 B
-    and 16 KB on one block per SM, and at 16 KB with 8 and 2 copies per
-    wait: after two waves the scatter's destination and the stage's
-    checksums equal to the plain versions, one wave timed (``index_copy_``
-    beside the scatter); then the entry point's P4: microseconds per copy and
-    per wait and effective GB/s, with the same raise;
+24. P4, scatter and stage at 512 B, 16 KB and 128 KB as the card-wide wave
+    (512 copies dealt over one block per SM, 8 issuing warps a block) and on
+    one block (one SM's issue cost), at 512 B and 16 KB as a wave on each of
+    132 blocks, and at 16 KB on one block with 8 and 2 copies per wait:
+    after two waves the scatter's destination and the stage's checksums
+    equal to the plain versions, one wave timed on the card beside the one
+    PyTorch call of the same copies (``index_copy_`` for the scatter,
+    ``index_select`` and a sum for the stage); then the entry point's P4:
+    microseconds per copy and per wait, effective GB/s and the library
+    call's, with the same raise;
 25. the channel-input kernel (``csrc/philox_planes.cu``), P5
     (``csrc/stage_chunks.cu``) and P6 (``csrc/stage_replay.cu``), built
     beside K1-K6 and P1-P4: registers, shared memory and spills of each
@@ -157,13 +162,15 @@ the port's decoder construction.
 27. P5, every variant (base, dynsem, pipeline, vwrite, unalign) on the 303 MB
     source: per-block checksums of two iterations equal to the plain version,
     one iteration timed against 293.6 MB at 3.35 TB/s;
-28. P6, every variant (exact, nochv, cn_only, vn_only, nosmall, nowrite,
-    staged) on DVB-S2 at batch 1024: views and checksums after two bodies
-    equal to the plain version, one body timed against its view traffic at
-    3.35 TB/s, beside K3's ms per body from phase 15;
+28. P6 (K3's wide passes with the folds replaced), every variant (exact,
+    nochv, cn_only, vn_only, nosmall, nowrite, staged) on DVB-S2 at batch
+    1024: views and checksums after two bodies equal to the plain version,
+    one body timed against its view traffic at 3.35 TB/s, beside K3's ms per
+    body from phase 15;
 29. the probe entry point's P5 and P6 with the launch counts reset: ms per
     iteration or body, GB/s and the fraction of the bound of every variant,
-    K3's ms per body beside P6 (above 1.05 x 3.35 TB/s: raise);
+    K3's ms per body beside P6 and K3's less P6 exact's, the folds' share of
+    a body (above 1.05 x 3.35 TB/s: raise);
 30. the map and the demap on the card against the CPU on the same bits and
     noise (WLAN, batch 512, n0 of 3.5 dB): 16-QAM, 64-QAM and 8-PSK symbols
     and received values equal (``==``), LLRs within the CPU tests'
@@ -273,6 +280,10 @@ MARY_DISPATCHES = 8  # 32768 blocks per M-ary point
 MARY_LLR_RTOL = 2e-6  # the demappers' tolerance of tests/test_torch_mary.py, of max(1, |ref|)
 PSK_POINTS = (3.0, 3.5)  # Eb/N0 (dB) of the 8-PSK points: the curve's waterfall
 PROBE_LIBRARIES = ("lut_columns", "bulk_read", "bulk_copies")
+K5C_LOOPS = {  # float op -> (K5c chain kernel's mangled name, fminf per application)
+    "minsum_op": ("float_pair_kernelINS_8MinSumOp", 1), "boxplus": ("float_pair_kernelINS_7BoxPlus", 1),
+    "float_mix": ("float_pair_kernelINS_7AddClip", 2), "min": ("float_pair_kernelINS_3Min", 1),
+}
 LATE_LIBRARIES = ("philox_planes", "stage_chunks", "stage_replay")
 PHILOX_PLANES = {  # plane kind -> (rows, batch): rng.draw's planes on the cells' shapes
     "uniform": (1296, 4096),  # the headline's inversion uniforms (off the main path)
@@ -650,43 +661,58 @@ def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict
     lap(23)
 
     # -- 24: P4, bulk copies and waits ----------------------------------------------------
-    copy_rows = {}
+    import numpy as np
+
+    copy_rows, library_ms_of = {}, {}  # variants with the same copies share their library call's time
     for v in probes.copy_variants(sms):
         operands = probes.copy_operands(v, dev, seed=24)
-        moved = v.blocks * v.wave * v.copy_bytes
         if v.direction == "scatter":
             image, target = operands
             want = torch.zeros_like(target)
             v.scatter(image, target, waves=2)
-            _, plain_ms_k = timed_plain(lambda: p4.scatter_plain(image, want, v.dst, v.smem, v.copy_rows))
+            _, plain_ms_k = timed_plain(lambda: p4.scatter_plain(image, want, v.copy_dst, v.copy_smem,
+                                                                 v.copy_rows))
             same = torch.equal(target, want)
-            to, frm = (torch.as_tensor(a, device=dev) for a in p4.scatter_rows(v.dst, v.smem, v.copy_rows))
-            picked = image.index_select(0, frm)
-            library_ms = cuda_ms(lambda: want.index_copy_(0, to, picked), reps=5)
-            ms = cuda_ms(lambda: v.scatter(image, target, waves=1), reps=5)
-            moved += image.numel() * 4
+            ms = device_ms(lambda: v.scatter(image, target, waves=1))
+            # The image rows the wave reads, once each, and the rows it writes.
+            moved = (len(np.unique(v.copy_smem)) + v.copies) * v.copy_bytes
         else:
             (source,) = operands
             got = v.stage(source, waves=2)
-            want, plain_ms_k = timed_plain(lambda: p4.stage_plain(source, v.dst, v.smem, v.copy_rows))
+            want, plain_ms_k = timed_plain(lambda: p4.stage_plain(source, v.copy_dst, v.copy_smem,
+                                                                  v.copy_rows, v.blocks))
             same = torch.equal(got, want)
-            library_ms = None
-            ms = cuda_ms(lambda: v.stage(source, waves=1), reps=5)
-            moved += 4 * v.blocks
+            ms = device_ms(lambda: v.stage(source, waves=1))
+            moved = v.copies * v.copy_bytes + 4 * v.blocks
         if not same:
             raise AssertionError(f"P4 {v.name} disagrees with its plain version")
+        key = (v.direction, v.copy_rows, v.regions)
+        if key not in library_ms_of:
+            library_ms_of[key] = device_ms(probes.copy_library(v, operands, dev)[0])
+        library_ms = library_ms_of[key]
         b = roofline.bound(moved, {})
         copy_rows[v.name] = dict(kind="copies" if v.entries >= v.wave else "copies_per_wait",
                                  max_abs_err=0, ms=ms, plain_ms=plain_ms_k, library_ms=library_ms,
                                  bound_ms=b["bound_ms"], bound_by=b["bound_by"])
-        print(f"[24 exact] {v.name}: {v.blocks} x {v.wave} copies of {v.copy_bytes} B, "
-              f"{v.group} per wait, {'destination' if v.direction == 'scatter' else 'checksums'} "
-              f"equal to the plain version; one wave {ms:.4f} ms, plain {plain_ms_k:.1f} ms"
-              + (f", index_copy_ {library_ms:.4f} ms" if library_ms else "")
-              + f", bound {b['bound_ms']:.4f} ms on {card}", flush=True)
+        if v.blocks == 1:
+            copy_rows[v.name]["note"] = "one block: one SM's issue cost"
+        deal = ("the card-wide wave" if v.regions == 1 and v.blocks > 1 else
+                "one block" if v.blocks == 1 else f"a wave on each of {v.blocks} blocks")
+        library = "index_copy_" if v.direction == "scatter" else "index_select + sum"
+        print(f"[24 exact] {v.name}, {deal}: {v.copies} copies of {v.copy_bytes} B on {v.blocks} "
+              f"blocks x {p4.WARPS} issuing warps, at most {v.group} a wait, "
+              f"{'destination' if v.direction == 'scatter' else 'checksums'} equal to the plain "
+              f"version; one wave {ms:.4f} ms (device), {library} {library_ms:.4f} ms "
+              f"({library_ms / ms:.2f} x the kernel's time), plain {plain_ms_k:.1f} ms, bound "
+              f"{b['bound_ms']:.4f} ms on {card}", flush=True)
         del operands, want
         torch.cuda.empty_cache()
-    counts, _ = drive_probe("p4", p4.launches)
+    counts, result = drive_probe("p4", p4.launches)
+    for r in result["p4"]:
+        print(f"[24 rate] {r['name']}: {r['us_per_copy']:.4f} us per copy, {r['us_per_wait']:.4f} us "
+              f"per wait ({r['waits_per_wave']} waits of one warp a wave), one wave "
+              f"{r['us_per_copy'] * r['copies']:.2f} us against the library call's "
+              f"{r['library_us_per_wave']:.2f} us (differenced) on {card}", flush=True)
     for name, numbers in copy_rows.items():
         record(f"bulk_copies_{name}", numbers.pop("kind"), "bulk_copies.cu", counts.get(name, 0),
                **numbers)
@@ -784,8 +810,9 @@ def late_phases(dev, card: str, lap, builds: dict, main_counts, k3_ms_per_body: 
     names = {**{v[len("channel_input_kernel"):-2] + f"{vec}E": k + ("" if vec else " scalar stores")
                 for k, v in CHANNEL_INPUT_KERNELS.items() for vec in (0, 1)},
              **{f"stage_kernelILi{k}E": v for k, v in enumerate(("base", "dynsem", "pipeline", "vwrite"))},
-             "cn_kernelILb0E": "cn nowrite", "cn_kernelILb1E": "cn", "vn_kernelILb0E": "vn nowrite",
-             "vn_kernelILb1E": "vn", "staged_kernelILb0E": "cn staged", "staged_kernelILb1E": "vn staged"}
+             **{f"{p}_kernelILb{hi}ELb{out}E": f"{p}{' high' if hi else ''}{'' if out else ' nowrite'}"
+                for p in ("cn", "vn") for hi in (0, 1) for out in (0, 1)},
+             "staged_kernelILb0E": "cn staged", "staged_kernelILb1E": "vn staged"}
     for name, b in builds.items():
         print(f"[25 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K6, P1-P4); "
               f"{ptxas_lines(b['log'], names)}", flush=True)
@@ -852,8 +879,9 @@ def late_phases(dev, card: str, lap, builds: dict, main_counts, k3_ms_per_body: 
                                 bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         print(f"[28 exact] P6 {variant} (TPU {p6.TPU_VARIANT[variant]}): views and checksums after 2 "
               f"bodies equal to the plain version; one body {p6_rows[variant]['ms']:.4f} ms, plain "
-              f"{plain_ms_k:.1f} ms, bound {b['bound_ms']:.4f} ms ({moved / 1e6:.0f} MB), K3 "
-              f"{k3_ms_per_body:.4f} ms per body (phase 15) on {card}", flush=True)
+              f"{plain_ms_k:.1f} ms, bound {b['bound_ms']:.4f} ms ({moved / 1e6:.0f} MB, "
+              f"{b['bound_ms'] / p6_rows[variant]['ms']:.1%} of it), K3 {k3_ms_per_body:.4f} ms per "
+              f"body (phase 15) on {card}", flush=True)
         del got, want
     del base, scratch
     torch.cuda.empty_cache()
@@ -870,6 +898,12 @@ def late_phases(dev, card: str, lap, builds: dict, main_counts, k3_ms_per_body: 
         print(f"[29 rate] P6 {r['name']}: {r['ms_per_body']:.4f} ms per body, {r['bytes_per_s'] / 1e9:.1f} "
               f"GB/s of views, {r['bound_ms'] / r['ms_per_body']:.1%} of the view-traffic bound, "
               f"K3 {replay['k3_ms_per_body']:.4f} ms per body on {card}", flush=True)
+    exact = next(r["ms_per_body"] for r in replay["variants"] if r["name"] == "exact")
+    folds = replay["k3_ms_per_body"] - exact
+    print(f"[29 folds] K3's body {replay['k3_ms_per_body']:.4f} ms less P6 exact's {exact:.4f} ms (its "
+          f"memory pattern without the folds): the folds' share {folds:.4f} ms, "
+          f"{folds / replay['k3_ms_per_body']:.1%} of K3's body on {card}", flush=True)
+
     for variant, numbers in p5_rows.items():
         record(f"stage_chunks_{variant}", "scripts/stage_probe.py:41", p5_counts.get(variant, 0),
                source="stage_chunks.cu", **numbers)
@@ -1214,10 +1248,12 @@ def rank_main(argv: list[str]) -> None:
     ``n_devices=1`` under a one-rank NCCL group, one dispatch from step 0 and
     its rate. ``gloo-pair``: this rank's shard of one dispatch of the
     headline (4096 a rank), DVB-S2 min-sum (K4, 1024 a rank) and WLAN
-    min-sum on ``backend='xla'`` (256 a rank, early exit on). Both print
-    one JSON line: the rank, the all-reduced counters and this rank's
-    launches. ``cli <rank 0's results> <other ranks' results> <CLI args>``:
-    the sweep CLI with ``--multihost`` over gloo on card 0."""
+    min-sum on ``backend='xla'`` (256 a rank, early exit on). Both take a
+    directory and write ``rank<r>.json`` there: the rank, the all-reduced
+    counters and this rank's launches (a file, as the ranks' shared standard
+    output may interleave their lines). ``cli <rank 0's results> <other
+    ranks' results> <CLI args>``: the sweep CLI with ``--multihost`` over
+    gloo on card 0."""
     import argparse
     import os
 
@@ -1274,7 +1310,7 @@ def rank_main(argv: list[str]) -> None:
     out["launches"].update(philox_planes.launches)
     torch.cuda.synchronize()
     torch.distributed.destroy_process_group()
-    print(json.dumps(out), flush=True)
+    (Path(a.args[0]) / f"rank{rank}.json").write_text(json.dumps(out))
 
 
 def launch(world: int, *args: str) -> str:
@@ -1310,9 +1346,14 @@ def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> c
     launched = collections.Counter()
 
     def rank_outputs(job: str, world: int) -> list[dict]:
-        """Each rank's JSON line, in rank order."""
-        outs = sorted((json.loads(ln) for ln in launch(world, job).splitlines()
-                       if ln.startswith("{")), key=lambda o: o["rank"])
+        """Each rank's JSON file, in rank order."""
+        with tempfile.TemporaryDirectory() as tmp:
+            launch(world, job, tmp)
+            files = [Path(tmp) / f"rank{r}.json" for r in range(world)]
+            missing = [f.name for f in files if not f.exists()]
+            if missing:
+                raise AssertionError(f"{job}: no {missing} from {world} rank(s)")
+            outs = [json.loads(f.read_text()) for f in files]
         if [o["rank"] for o in outs] != list(range(world)):
             raise AssertionError(f"{job}: ranks {[o['rank'] for o in outs]} reported, not {world}")
         for o in outs:
@@ -2140,18 +2181,23 @@ def main() -> None:
     for name, b in roof_builds.items():
         print(f"[16 build] {name}.cu: nvcc {b['seconds']:.2f} s (beside K1-K4); "
               f"{ptxas_lines(b['log'], k5_names)}", flush=True)
-    # One box-plus as compiled: K5c's chain loop per box-plus, each of which
-    # has one fminf(|a|, |b|) (FMNMX); expf and log1pf have none.
-    ops = loop_op_counts(roof_builds["peaks"]["path"], "float_pair_kernelINS_7BoxPlus")
-    n_boxplus = ops["FMNMX"]
-    fp32 = sum(ops.get(op, 0) for op in roofline.FP32_OPCODES) / n_boxplus
-    sfu = sum(ops.get(op, 0) for op in roofline.SFU_OPCODES) / n_boxplus
-    print(f"[16 sass] K5c box-plus loop: {n_boxplus} box-plus a trip, per box-plus "
-          f"{sum(ops.values()) / n_boxplus:.3f} instructions, {fp32:.3f} FP32-pipe "
-          f"({', '.join(roofline.FP32_OPCODES)}) and {sfu:.3f} SFU; the roofline counts "
-          f"{json.dumps(roofline.BOXPLUS_SASS)}; "
-          + json.dumps({k: round(v / n_boxplus, 3) for k, v in sorted(ops.items(), key=lambda kv: -kv[1])}),
-          flush=True)
+    # Each K5c op as compiled: its chain loop's SASS per application (one
+    # fminf, FMNMX, per min-sum op, box-plus and min; two per add+clip),
+    # by class against the roofline's count (FLOAT_OP_SASS).
+    for op, (mangled, per_app) in K5C_LOOPS.items():
+        ops = loop_op_counts(roof_builds["peaks"]["path"], mangled)
+        apps = ops["FMNMX"] / per_app
+        got = roofline.sass_counts({k: v / apps for k, v in ops.items()})
+        want = roofline.FLOAT_OP_COUNTS[op]
+        sass_equal = got.keys() == want.keys() and all(abs(got[k] - want[k]) < 1e-9 for k in got)
+        b = roofline.bound(0, got)
+        print(f"[16 sass] K5c {op} loop: {apps:.0f} applications a trip, per application "
+              f"{json.dumps({k: round(v, 4) for k, v in got.items()})} by class "
+              f"({'equal to' if sass_equal else 'NOT the'} roofline's count); busiest {b['busiest']}, "
+              f"{b['compute_ms'] * 1e-3 * roofline.SMS * roofline.BOOST_HZ:.4f} SM-clocks an "
+              f"application; opcodes "
+              + json.dumps({k: round(v / apps, 4) for k, v in sorted(ops.items(), key=lambda kv: -kv[1])}),
+              flush=True)
     lap(16)
 
     # -- 17: K5 and K6 against their plain versions ----------------------------
@@ -2191,7 +2237,9 @@ def main() -> None:
         print(f"[17 exact] K5 {name}: {threads} threads x {k5.CHAINS} chains x "
               f"{k5.STEPS * CHECK_LOOPS} steps equal to the plain version; kernel "
               f"{rows[name]['ms']:.3f} ms, plain {plain_ms_k:.1f} ms, bound "
-              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}) on {card}", flush=True)
+              f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']}, busiest "
+              f"{b['busiest']}), {rows[name]['bound_ms'] / rows[name]['ms']:.1%} of it on {card}",
+              flush=True)
     src = torch.randint(-2**31, 2**31 - 1, (roofline.COPY_BYTES // 4,), dtype=torch.int32, device=dev)
     dst, ref_dst = torch.empty_like(src), torch.empty_like(src)
     hbm_copy.copy(src, dst)
@@ -2224,10 +2272,11 @@ def main() -> None:
     for kind, t in primitives:
         rate = peaks.primitive_peak(kind, t) if t else peaks.primitive_peak(kind)
         unit = "lookups" if t else "applications"
-        ops = {"lookup": 1} if t else roofline.FLOAT_OP_COUNTS[kind]
-        share = max(rate * n / roofline.DATA_SHEET_OPS_PER_S[k] for k, n in ops.items())
+        b = roofline.bound(0, {"lookup": 1} if t else roofline.FLOAT_OP_COUNTS[kind])
+        share = rate * b["compute_ms"] * 1e-3  # the per-pipe bound's time of one, over rate's
         print(f"[18 peak] {kind}{f' T={t}' if t else ''}: {rate / 1e9:.2f} G {unit}/s, "
-              f"{share:.1%} of the data sheet's rate on {card}", flush=True)
+              f"{share:.1%} of the per-pipe bound's rate (busiest {b['busiest']}) on {card}",
+              flush=True)
     del src, dst, ref_dst
     bandwidth = roofline.traffic_bandwidth(dev)
     bw, copy_bw = bandwidth["k6"], bandwidth["copy_"]
@@ -2332,7 +2381,7 @@ def main() -> None:
         b = roofline.decode_bound(lay, decoder_name, batch, bodies, tables)
         rows[name] = dict(library_ms=None, **{k: b[k] for k in ("bound_ms", "bound_by")})
         line = (f"[20 bound] {name} at batch {batch}, {bodies:.2f} bodies: I/O {b['io_ms']:.4f} ms, "
-                f"compute {b['compute_ms']:.4f} ms")
+                f"compute {b['compute_ms']:.4f} ms (busiest {b['busiest']})")
         if "hbm" in name:
             traffic = roofline.view_bytes_per_body(lay, decoder_name) * bodies * batch / matrix_bw
             line += f", view traffic {traffic * 1e3:.3f} ms at the copy bandwidth"

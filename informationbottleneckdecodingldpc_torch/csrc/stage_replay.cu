@@ -6,33 +6,37 @@
 // scripts/stage_replay.py:build, which replays the TPU K3's exact stage
 // program (chunk strides, channel staging, buffer halves) with fold and
 // scatter removed. The port's K3 (ib_lut_hbm.cu) has no DMA chassis, so this
-// replays the port's K3 instead and keeps everything it does to memory: the
-// ib_lut::Graph arrays, uint8 views [tile][row][bt] in device memory, one
-// grid-stride launch per pass over all tiles (hbm_tiles::pass_grid, grid y =
-// tile), and per body a VN pass B -> A that also reads the channel plane and
-// a CN pass A -> B, with ib_lut_groups.cuh's per-group row reads
-// src[(off + k n + node) bt + c] and routed row writes
-// dst[route[off + k n + node] bt + c]. Output message k of a node is the XOR
-// of its other inputs (the channel included) XOR k, in place of the LUT fold;
-// a degree-1 variable node forwards its channel value. K3's table staging and
-// exit passes are left out with the folds. Modes (kernels/stage_replay.py
-// lists the variants, which also select groups and the channel read):
+// replays the port's K3 as it runs and keeps everything it does to memory:
+// the ib_lut::Graph arrays, uint8 views [tile][row][bt] in device memory,
+// and per body a VN pass B -> A that also reads the channel plane and a CN
+// pass A -> B, each as K3's wide passes (hbm_wide.cuh): a thread keeps
+// V = 8 consecutive codeword columns of its node rows (RowItems), loads
+// each input row with one 8-byte load and stores each routed output row
+// dst[route[off + k n + node] bt + c0 ..] with one 8-byte store; nodes above
+// hbm_wide's split degree run in a second launch at 4 columns, as K3's
+// general kernel, made only when the code has such nodes; each launch is
+// shaped by hbm_wide::pass_shape over all tiles (grid y = tile). Output
+// message k of a node is the XOR of its other inputs (the channel included)
+// XOR k, in place of the LUT fold: the XOR of two 32-bit words is that of
+// four columns at once, in registers. A degree-1 variable node forwards its
+// channel value. K3's table staging, syndrome and exit passes are left out
+// with the folds. Modes (kernels/stage_replay.py lists the variants, which
+// also select groups and the channel read):
 //
 //   write     the passes as K3 runs them
-//   nowrite   the reads only, summed per tile into a wrapping checksum so
-//             they are not dead
+//   nowrite   the reads only, their bytes summed per tile into a wrapping
+//             checksum so they are not dead
 //   staged    the read side through bulk copies: a unit is `piece` nodes of a
 //             group, whose plane k is `piece` contiguous 128-byte rows of the
-//             tile's slab (and the channel rows likewise); one block per SM
+//             tile's slab (and the channel rows likewise); each block
 //             double-buffers units through two stages in shared memory (9
-//             planes x 24 rows x 128 B = 27 KB each on DVB-S2), consumes them
-//             and writes routed as above
+//             planes x 24 rows x 128 B = 27 KB each on DVB-S2), one mbarrier
+//             a stage, and consumes a unit 8 columns a thread, written
+//             routed as above
 //
 // What bounds it: device-memory bandwidth. A DVB-S2 body at batch 1024 reads
 // and writes both views once and reads the channel plane, 4 x 226,799 +
 // 64,800 bytes per codeword, 995 MB, 0.297 ms at the data sheet's 3.35 TB/s.
-// Every access is a byte per thread, so a warp moves 32-byte sectors; the
-// staged reads are 3 KB bulk copies.
 
 #include <cuda_runtime.h>
 
@@ -41,16 +45,19 @@
 
 #include "bulk.cuh"
 #include "hbm_tiles.cuh"
+#include "hbm_wide.cuh"
 #include "ib_lut_groups.cuh"
 
 namespace {
 
-using hbm_tiles::first_item;
-using hbm_tiles::item_step;
-using hbm_tiles::kThreads;
+using hbm_wide::Bytes;
+using hbm_wide::RowItems;
 
 constexpr int kBatchTile = 128;
-constexpr int kStagedThreads = 512;
+constexpr int kVec = 8;      // columns per thread of the low passes, K3's per-lane width
+constexpr int kHighVec = 4;  // of the passes above the split degree, K3's general width
+constexpr int kPiece = 24;   // nodes per staged unit
+constexpr int kStagedThreads = kPiece * kBatchTile / kVec;  // one 8-column item each
 
 enum Mode { kWrite = 0, kNoWrite = 1, kStaged = 2 };
 
@@ -61,65 +68,98 @@ struct Params {
   const uint8_t* chg;  // [n_tiles, n_vars, bt] channel plane, group order
   uint32_t* sums;      // [n_tiles] checksums of the reads (nowrite)
   int n_vars, n_edges, chv;
-  int piece, stage_planes;  // staged: nodes per unit, planes per stage
+  int stage_planes;    // staged: planes per stage
 };
 
 __device__ __forceinline__ size_t view_base(const Params& p, int tile) {
   return size_t(tile) * p.n_edges * p.g.bt;
 }
 
-// A CN group's items as K3's cn_group walks them; returns the sum of the
-// bytes read (dead when the outputs are written).
-template <int D, bool kOut>
+// k in each byte of a word.
+__device__ __forceinline__ uint32_t splat(int k) { return uint32_t(k) * 0x01010101u; }
+
+template <int V>
+__device__ __forceinline__ void xor_into(Bytes<V>& x, const Bytes<V>& m) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) x.w[i] ^= m.w[i];
+}
+
+// Output k of a leave-one-out XOR fold whose total is x.
+template <int V>
+__device__ __forceinline__ Bytes<V> leave_out(const Bytes<V>& x, const Bytes<V>& m, int k) {
+  Bytes<V> o;
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) o.w[i] = x.w[i] ^ m.w[i] ^ splat(k);
+  return o;
+}
+
+template <int V>
+__device__ __forceinline__ uint32_t byte_sum(const Bytes<V>& m, uint32_t sum) {
+#pragma unroll
+  for (int i = 0; i < V / 4; ++i) sum = __dp4a(m.w[i], 0x01010101u, sum);
+  return sum;
+}
+
+// One check group of degree D, V columns per item: D vector loads, then D
+// routed vector stores of the fold (kOut) or the bytes' sum (returned).
+template <int V, int D, bool kOut>
 __device__ uint32_t cn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                              const int32_t* __restrict__ route, int off, int n, int bt,
-                             int first, int step) {
+                             RowItems it) {
   uint32_t sum = 0;
-  for (int t = first; t < n * bt; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    uint8_t m[D], x = 0;
+  for (int node = it.node; node < n; node += it.node_step) {
+    Bytes<V> in[D];
 #pragma unroll
-    for (int k = 0; k < D; ++k) {
-      m[k] = src[(off + k * n + node) * bt + c];
-      x ^= m[k];
-      sum += m[k];
-    }
-    if (kOut) {
+    for (int k = 0; k < D; ++k) in[k].load(src + (off + k * n + node) * bt + it.c0);
+    if constexpr (kOut) {
+      int row[D];
+      Bytes<V> x;
+      x.clear();
 #pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[off + k * n + node]) * bt + c] = uint8_t(x ^ m[k] ^ k);
+      for (int k = 0; k < D; ++k) {
+        row[k] = __ldg(&route[off + k * n + node]);
+        xor_into(x, in[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) leave_out(x, in[k], k).store(dst + row[k] * bt + it.c0);
+    } else {
+#pragma unroll
+      for (int k = 0; k < D; ++k) sum = byte_sum(in[k], sum);
     }
   }
   return sum;
 }
 
-// A VN group's items as K3's vn_group walks them; `chg` null: the channel
-// is not read and counts as 0.
-template <int D, bool kOut>
+// One variable group of degree D with its channel rows (`chg` null: not
+// read, counted as 0).
+template <int V, int D, bool kOut>
 __device__ uint32_t vn_group(const uint8_t* __restrict__ src, uint8_t* __restrict__ dst,
                              const uint8_t* __restrict__ chg, const int32_t* __restrict__ route,
-                             int off, int n, int node_off, int bt, int first, int step) {
+                             int off, int n, int node_off, int bt, RowItems it) {
   uint32_t sum = 0;
-  for (int t = first; t < n * bt; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    uint8_t x = chg != nullptr ? chg[(node_off + node) * bt + c] : uint8_t(0);
-    sum += x;
+  for (int node = it.node; node < n; node += it.node_step) {
+    Bytes<V> ch;
+    ch.clear();
+    if (chg != nullptr) ch.load(chg + (node_off + node) * bt + it.c0);
+    if constexpr (!kOut) sum = byte_sum(ch, sum);
     if constexpr (D == 1) {
-      if (kOut) dst[__ldg(&route[off + node]) * bt + c] = x;
+      if constexpr (kOut) ch.store(dst + __ldg(&route[off + node]) * bt + it.c0);
     } else {
-      uint8_t m[D];
+      Bytes<V> in[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) {
-        m[k] = src[(off + k * n + node) * bt + c];
-        x ^= m[k];
-        sum += m[k];
-      }
-      if (kOut) {
+      for (int k = 0; k < D; ++k) in[k].load(src + (off + k * n + node) * bt + it.c0);
+      if constexpr (kOut) {
+        int row[D];
 #pragma unroll
-        for (int k = 0; k < D; ++k)
-          dst[__ldg(&route[off + k * n + node]) * bt + c] = uint8_t(x ^ m[k] ^ k);
+        for (int k = 0; k < D; ++k) {
+          row[k] = __ldg(&route[off + k * n + node]);
+          xor_into(ch, in[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < D; ++k) leave_out(ch, in[k], k).store(dst + row[k] * bt + it.c0);
+      } else {
+#pragma unroll
+        for (int k = 0; k < D; ++k) sum = byte_sum(in[k], sum);
       }
     }
   }
@@ -133,49 +173,72 @@ __device__ __forceinline__ void add_sum(const Params& p, int tile, uint32_t sum)
   if (threadIdx.x == 0) atomicAdd(&p.sums[tile], sum);
 }
 
-template <bool kOut>
-__global__ void __launch_bounds__(kThreads) cn_kernel(Params p) {
+// The CN pass over the groups of range HI (above the split degree) or not.
+template <bool HI, bool kOut>
+__global__ void __launch_bounds__(hbm_wide::kThreads) cn_kernel(Params p) {
+  constexpr int V = HI ? kHighVec : kVec;
   const int tile = blockIdx.y, bt = p.g.bt;
   const uint8_t* src = p.A + view_base(p, tile);
   uint8_t* dst = p.B + view_base(p, tile);
+  const RowItems it = hbm_wide::row_items<V>(bt);
   uint32_t sum = 0;
   for (int k = 0; k < p.g.n_cn_groups; ++k) {
-    const int off = p.g.cn_groups[3 * k], n = p.g.cn_groups[3 * k + 1];
-    switch (p.g.cn_groups[3 * k + 2]) {
-#define REPLAY_CN_CASE(D)                                                                   \
-  case D:                                                                                   \
-    sum += cn_group<D, kOut>(src, dst, p.g.cn_route, off, n, bt, first_item(), item_step()); \
+    const int off = p.g.cn_groups[3 * k], n = p.g.cn_groups[3 * k + 1], d = p.g.cn_groups[3 * k + 2];
+    if (!hbm_wide::in_range<HI>(d)) continue;
+#define REPLAY_CN_CASE(D)                                                  \
+  case D:                                                                  \
+    sum += cn_group<V, D, kOut>(src, dst, p.g.cn_route, off, n, bt, it);   \
     break;
-      IB_DEGREES_2_TO_16(REPLAY_CN_CASE)
-#undef REPLAY_CN_CASE
-      default:
-        __trap();
+    if constexpr (HI) {
+      switch (d) {
+        WIDE_DEGREES_HI(REPLAY_CN_CASE)
+        default:
+          __trap();
+      }
+    } else {
+      switch (d) {
+        WIDE_DEGREES_LO(REPLAY_CN_CASE)
+        default:
+          __trap();
+      }
     }
+#undef REPLAY_CN_CASE
   }
   add_sum<kOut>(p, tile, sum);
 }
 
-template <bool kOut>
-__global__ void __launch_bounds__(kThreads) vn_kernel(Params p) {
+template <bool HI, bool kOut>
+__global__ void __launch_bounds__(hbm_wide::kThreads) vn_kernel(Params p) {
+  constexpr int V = HI ? kHighVec : kVec;
   const int tile = blockIdx.y, bt = p.g.bt;
   const uint8_t* src = p.B + view_base(p, tile);
   uint8_t* dst = p.A + view_base(p, tile);
   const uint8_t* chg = p.chv ? p.chg + size_t(tile) * p.n_vars * bt : nullptr;
+  const RowItems it = hbm_wide::row_items<V>(bt);
   uint32_t sum = 0;
   for (int k = 0; k < p.g.n_vn_groups; ++k) {
     const int off = p.g.vn_groups[4 * k], n = p.g.vn_groups[4 * k + 1];
-    const int node_off = p.g.vn_groups[4 * k + 3];
-    switch (p.g.vn_groups[4 * k + 2]) {
-#define REPLAY_VN_CASE(D)                                                                  \
-  case D:                                                                                  \
-    sum += vn_group<D, kOut>(src, dst, chg, p.g.vn_route, off, n, node_off, bt,           \
-                             first_item(), item_step());                                   \
+    const int d = p.g.vn_groups[4 * k + 2], node_off = p.g.vn_groups[4 * k + 3];
+    if (!hbm_wide::in_range<HI>(d)) continue;
+#define REPLAY_VN_CASE(D)                                                                   \
+  case D:                                                                                   \
+    sum += vn_group<V, D, kOut>(src, dst, chg, p.g.vn_route, off, n, node_off, bt, it);     \
     break;
-      IB_DEGREES_1_TO_16(REPLAY_VN_CASE)
-#undef REPLAY_VN_CASE
-      default:
-        __trap();
+    if constexpr (HI) {
+      switch (d) {
+        WIDE_DEGREES_HI(REPLAY_VN_CASE)
+        default:
+          __trap();
+      }
+    } else {
+      switch (d) {
+        REPLAY_VN_CASE(1)
+        WIDE_DEGREES_LO(REPLAY_VN_CASE)
+        default:
+          __trap();
+      }
     }
+#undef REPLAY_VN_CASE
   }
   add_sum<kOut>(p, tile, sum);
 }
@@ -190,7 +253,7 @@ __device__ __forceinline__ Unit unit_of(const Params& p, const int32_t* units, i
   const int gi = units[2 * u], n0 = units[2 * u + 1];
   const int32_t* grp = kVn ? p.g.vn_groups + 4 * gi : p.g.cn_groups + 3 * gi;
   const int n = grp[1];
-  return Unit{grp[0], n, grp[2], kVn ? grp[3] : 0, n0, min(p.piece, n - n0)};
+  return Unit{grp[0], n, grp[2], kVn ? grp[3] : 0, n0, min(kPiece, n - n0)};
 }
 
 // Messages a unit stages per node: a degree-1 variable node reads none.
@@ -199,30 +262,36 @@ __device__ __forceinline__ int message_planes(const Unit& u) {
   return kVn && u.d == 1 ? 0 : u.d;
 }
 
+__device__ __forceinline__ Bytes<kVec> shared_row(const uint8_t* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  Bytes<kVec> b;
+  b.w[0] = v.x;
+  b.w[1] = v.y;
+  return b;
+}
+
 // The unit's items from its stage `st` (plane k at k piece bt, the channel
-// after the messages), written routed as the write mode writes them.
-template <int D, bool kVn>
+// after the messages), 8 columns a thread, written routed as the write mode
+// writes them.
+template <bool kVn>
 __device__ void consume(const Params& p, const uint8_t* st, uint8_t* dst, const Unit& u) {
-  const int bt = p.g.bt, plane = p.piece * bt;
+  const int bt = p.g.bt, plane = kPiece * bt, lanes = bt / kVec;
   const int32_t* route = kVn ? p.g.vn_route : p.g.cn_route;
-  constexpr int kPlanes = kVn && D == 1 ? 0 : D;
-  for (int i = threadIdx.x; i < u.count * bt; i += blockDim.x) {
-    const int node = u.n0 + i / bt;
-    const int c = i - (i / bt) * bt;
-    uint8_t x = kVn && p.chv ? st[kPlanes * plane + i] : uint8_t(0);
-    if constexpr (kPlanes == 0) {
-      dst[__ldg(&route[u.off + node]) * bt + c] = x;
-    } else {
-      uint8_t m[D];
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        m[k] = st[k * plane + i];
-        x ^= m[k];
-      }
-#pragma unroll
-      for (int k = 0; k < D; ++k)
-        dst[__ldg(&route[u.off + k * u.n + node]) * bt + c] = uint8_t(x ^ m[k] ^ k);
+  const int planes = message_planes<kVn>(u);
+  for (int i = threadIdx.x; i < u.count * lanes; i += blockDim.x) {
+    const int local = i / lanes, c0 = (i - local * lanes) * kVec, node = u.n0 + local;
+    const int at = local * bt + c0;
+    Bytes<kVec> x;
+    x.clear();
+    if (kVn && p.chv) x = shared_row(st + planes * plane + at);
+    if (planes == 0) {
+      x.store(dst + __ldg(&route[u.off + node]) * bt + c0);
+      continue;
     }
+    for (int k = 0; k < planes; ++k) xor_into(x, shared_row(st + k * plane + at));
+    for (int k = 0; k < planes; ++k)
+      leave_out(x, shared_row(st + k * plane + at), k)
+          .store(dst + __ldg(&route[u.off + k * u.n + node]) * bt + c0);
   }
 }
 
@@ -235,7 +304,7 @@ __global__ void __launch_bounds__(kStagedThreads)
   const uint8_t* src = (kVn ? p.B : p.A) + view_base(p, tile);
   uint8_t* dst = (kVn ? p.A : p.B) + view_base(p, tile);
   const uint8_t* chg = p.chg + size_t(tile) * p.n_vars * bt;
-  const int plane = p.piece * bt, stage = p.stage_planes * plane;
+  const int plane = kPiece * bt, stage = p.stage_planes * plane;
   const int mine = n_units > int(blockIdx.x) ? (n_units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   if (threadIdx.x == 0) {
     bulk::init(&bars[0], 1);
@@ -260,20 +329,86 @@ __global__ void __launch_bounds__(kStagedThreads)
     if (threadIdx.x == 0 && t + 1 < mine) issue(t + 1, (t + 1) & 1);
     const int h = t & 1;
     bulk::wait(&bars[h], (t >> 1) & 1);
-    const Unit u = unit_of<kVn>(p, units, blockIdx.x + t * gridDim.x);
-    const uint8_t* st = smem + h * stage;
-    switch (u.d) {
-#define REPLAY_STAGED_CASE(D) \
-  case D:                     \
-    consume<D, kVn>(p, st, dst, u); \
-    break;
-      IB_DEGREES_1_TO_16(REPLAY_STAGED_CASE)
-#undef REPLAY_STAGED_CASE
-      default:
-        __trap();
-    }
+    consume<kVn>(p, smem + h * stage, dst, unit_of<kVn>(p, units, blockIdx.x + t * gridDim.x));
     __syncthreads();
   }
+}
+
+// One pass as launched: the low kernel, and the high one when the pass has
+// nodes above the split degree.
+struct PassLaunch {
+  bool high;
+  hbm_wide::PassShape low_shape, high_shape;
+};
+
+template <class Low, class High>
+cudaError_t plan_pass(Low low, High high, int d_max, int rows, int n_tiles, int sms,
+                      PassLaunch* out) {
+  out->high = d_max > hbm_wide::kSplitDegree;
+  cudaError_t err = hbm_wide::pass_shape(low, kVec, kBatchTile, 0, rows, n_tiles, sms,
+                                         &out->low_shape);
+  if (err == cudaSuccess && out->high)
+    err = hbm_wide::pass_shape(high, kHighVec, kBatchTile, 0, rows, n_tiles, sms,
+                               &out->high_shape);
+  return err;
+}
+
+// The grid of a staged pass: as many blocks as the card holds at once,
+// shared among the tiles.
+template <class Kernel>
+cudaError_t staged_grid(Kernel kernel, int smem, int n_tiles, int sms, dim3* grid) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kStagedThreads, smem);
+  const int share = sms * per_sm / n_tiles;
+  *grid = dim3(share > 1 ? share : 1, n_tiles);
+  return err;
+}
+
+template <bool kOut>
+int replay(const Params& p, int n_checks, int cn_d_max, int vn_d_max, int n_tiles, int bodies,
+           int sms, cudaStream_t s) {
+  PassLaunch cn, vn;
+  cudaError_t err = plan_pass(cn_kernel<false, kOut>, cn_kernel<true, kOut>, cn_d_max, n_checks,
+                              n_tiles, sms, &cn);
+  if (err == cudaSuccess)
+    err = plan_pass(vn_kernel<false, kOut>, vn_kernel<true, kOut>, vn_d_max, p.n_vars, n_tiles,
+                    sms, &vn);
+  if (err != cudaSuccess) return int(err);
+  for (int b = 0; b < bodies; ++b) {
+    if (p.g.n_vn_groups) {
+      HBM_LAUNCH(vn_kernel<false, kOut><<<vn.low_shape.grid, vn.low_shape.threads, 0, s>>>(p));
+      if (vn.high)
+        HBM_LAUNCH(vn_kernel<true, kOut><<<vn.high_shape.grid, vn.high_shape.threads, 0, s>>>(p));
+    }
+    if (p.g.n_cn_groups) {
+      HBM_LAUNCH(cn_kernel<false, kOut><<<cn.low_shape.grid, cn.low_shape.threads, 0, s>>>(p));
+      if (cn.high)
+        HBM_LAUNCH(cn_kernel<true, kOut><<<cn.high_shape.grid, cn.high_shape.threads, 0, s>>>(p));
+    }
+  }
+  return int(cudaSuccess);
+}
+
+int replay_staged(const Params& p, const int32_t* cn_units, int n_cn_units,
+                  const int32_t* vn_units, int n_vn_units, int n_tiles, int bodies, int sms,
+                  cudaStream_t s) {
+  const long long stage = (long long)p.stage_planes * kPiece * kBatchTile;
+  if (stage > bulk::kMaxTxBytes) return int(cudaErrorInvalidValue);  // one barrier's phase
+  dim3 cn_grid, vn_grid;
+  cudaError_t err = staged_grid(staged_kernel<false>, int(2 * stage), n_tiles, sms, &cn_grid);
+  if (err == cudaSuccess) err = staged_grid(staged_kernel<true>, int(2 * stage), n_tiles, sms, &vn_grid);
+  if (err != cudaSuccess) return int(err);
+  const int smem = int(2 * stage);
+  for (int b = 0; b < bodies; ++b) {
+    if (p.g.n_vn_groups)
+      HBM_LAUNCH(staged_kernel<true><<<vn_grid, kStagedThreads, smem, s>>>(p, vn_units, n_vn_units));
+    if (p.g.n_cn_groups)
+      HBM_LAUNCH(staged_kernel<false><<<cn_grid, kStagedThreads, smem, s>>>(p, cn_units, n_cn_units));
+  }
+  return int(cudaSuccess);
 }
 
 }  // namespace
@@ -281,55 +416,35 @@ __global__ void __launch_bounds__(kStagedThreads)
 extern "C" {
 
 int stage_replay_batch_tile() { return kBatchTile; }
+int stage_replay_piece() { return kPiece; }
 
 // `bodies` bodies of the replay on `stream`: per body the VN pass (if
-// n_vn_groups) then the CN pass (if n_cn_groups), each one launch over all
-// n_tiles tiles of kBatchTile codewords. `mode` 0 writes the outputs, 1 sums
-// the reads into sums[tile], 2 stages the reads through `piece`-node units
-// (cn_units / vn_units: (group, first node) pairs) in stages of
-// `stage_planes` planes. `chv` 0: the VN pass does not read `chg`.
+// n_vn_groups) then the CN pass (if n_cn_groups), each over all n_tiles
+// tiles of kBatchTile codewords, with a second launch for the groups above
+// hbm_wide's split degree when the pass's largest degree (cn_d_max,
+// vn_d_max) is above it. `mode` 0 writes the outputs, 1 sums the reads into
+// sums[tile], 2 stages the reads through kPiece-node units (cn_units /
+// vn_units: (group, first node) pairs) in stages of `stage_planes` planes.
+// `chv` 0: the VN pass does not read `chg`.
 int stage_replay(int mode, int chv, uint8_t* A, uint8_t* B, const uint8_t* chg, uint32_t* sums,
                  const int32_t* cn_groups, const int32_t* vn_groups, const int32_t* cn_route,
                  const int32_t* vn_route, int n_cn_groups, int n_vn_groups,
                  const int32_t* cn_units, int n_cn_units, const int32_t* vn_units, int n_vn_units,
-                 int piece, int stage_planes, int n_vars, int n_checks, int n_edges, int n_tiles,
-                 int bodies, void* stream) {
-  if (mode < kWrite || mode > kStaged || n_tiles < 1 || bodies < 0 || piece < 1 ||
-      (long long)n_edges * kBatchTile >= (1ll << 31))
+                 int stage_planes, int cn_d_max, int vn_d_max, int n_vars, int n_checks,
+                 int n_edges, int n_tiles, int bodies, void* stream) {
+  if (mode < kWrite || mode > kStaged || n_tiles < 1 || bodies < 0 ||
+      cn_d_max > 16 || vn_d_max > 16 || (long long)n_edges * kBatchTile >= (1ll << 31))
     return int(cudaErrorInvalidValue);
   const ib_lut::Graph g{cn_groups,   vn_groups,   cn_route,   vn_route, nullptr,
                         n_cn_groups, n_vn_groups, kBatchTile, 0};
-  const Params p{g, A, B, chg, sums, n_vars, n_edges, chv, piece, stage_planes};
+  const Params p{g, A, B, chg, sums, n_vars, n_edges, chv, stage_planes};
   const auto s = static_cast<cudaStream_t>(stream);
   int sms = 0;
-  cudaError_t err = hbm_tiles::sm_count(&sms);
-  const long long stage = (long long)stage_planes * piece * kBatchTile;
-  if (err == cudaSuccess && mode == kStaged) {
-    if (stage > bulk::kMaxTxBytes) return int(cudaErrorInvalidValue);  // one barrier's phase
-    err = cudaFuncSetAttribute(staged_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(2 * stage));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(staged_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, int(2 * stage));
-  }
+  const cudaError_t err = hbm_tiles::sm_count(&sms);
   if (err != cudaSuccess) return int(err);
-  const dim3 cn_grid = hbm_tiles::pass_grid(n_checks * kBatchTile, n_tiles, sms);
-  const dim3 vn_grid = hbm_tiles::pass_grid(n_vars * kBatchTile, n_tiles, sms);
-  const dim3 staged_grid((sms + n_tiles - 1) / n_tiles, n_tiles);  // about one block per SM
-  const int smem = int(2 * stage);
-  for (int b = 0; b < bodies; ++b) {
-    if (n_vn_groups) {
-      if (mode == kWrite) HBM_LAUNCH(vn_kernel<true><<<vn_grid, kThreads, 0, s>>>(p));
-      else if (mode == kNoWrite) HBM_LAUNCH(vn_kernel<false><<<vn_grid, kThreads, 0, s>>>(p));
-      else HBM_LAUNCH(staged_kernel<true><<<staged_grid, kStagedThreads, smem, s>>>(p, vn_units, n_vn_units));
-    }
-    if (n_cn_groups) {
-      if (mode == kWrite) HBM_LAUNCH(cn_kernel<true><<<cn_grid, kThreads, 0, s>>>(p));
-      else if (mode == kNoWrite) HBM_LAUNCH(cn_kernel<false><<<cn_grid, kThreads, 0, s>>>(p));
-      else HBM_LAUNCH(staged_kernel<false><<<staged_grid, kStagedThreads, smem, s>>>(p, cn_units, n_cn_units));
-    }
-  }
-  return int(cudaSuccess);
+  if (mode == kWrite) return replay<true>(p, n_checks, cn_d_max, vn_d_max, n_tiles, bodies, sms, s);
+  if (mode == kNoWrite) return replay<false>(p, n_checks, cn_d_max, vn_d_max, n_tiles, bodies, sms, s);
+  return replay_staged(p, cn_units, n_cn_units, vn_units, n_vn_units, n_tiles, bodies, sms, s);
 }
 
 const char* stage_replay_error_string(int err) {

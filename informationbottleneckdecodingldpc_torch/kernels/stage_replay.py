@@ -4,17 +4,19 @@ plain version.
 Port of the Pallas probe ``scripts/stage_replay.py`` ``build``, which
 replays the TPU K3's stage program on the DVB-S2 layout with fold and
 scatter removed. The port's K3 (``csrc/ib_lut_hbm.cu``) has no DMA chassis,
-so the replay is defined against the port's K3 instead, and keeps what it
-does to memory: the ``ib_lut::Graph`` arrays (``layout_arrays``), uint8
-views ``[tile][row][128]`` in device memory, one grid-stride launch per pass
-over all tiles (``hbm_tiles::pass_grid``), and per body a VN pass (B -> A,
-also reading the channel plane ``chg``) and a CN pass (A -> B), each with
-K3's per-group row reads ``src[(off + k n + node) bt + c]`` and routed row
-writes ``dst[route[off + k n + node] bt + c]`` (``csrc/ib_lut_groups.cuh``).
-In place of the lookup-table folds, output message k of a node is the XOR of
-its other inputs (the channel included) XOR k: a leave-one-out fold that
-costs one operation per input. A degree-1 variable node forwards its channel
-value, as in K3.
+so the replay is defined against the port's K3 as it runs instead, and keeps
+what it does to memory: the ``ib_lut::Graph`` arrays (``layout_arrays``),
+uint8 views ``[tile][row][128]`` in device memory, and per body a VN pass
+(B -> A, also reading the channel plane ``chg``) and a CN pass (A -> B),
+each as K3's wide passes (``csrc/hbm_wide.cuh``): 8 codeword columns a
+thread, one 8-byte load per input row ``src[(off + k n + node) bt + c]`` and
+one 8-byte store per routed output row ``dst[route[off + k n + node] bt +
+c]``, nodes above the split degree in a second launch at 4 columns. In place
+of the lookup-table folds, output message k of a node is the XOR of its
+other inputs (the channel included) XOR k: a leave-one-out fold that costs
+one operation per input. A degree-1 variable node forwards its channel
+value, as in K3. None of this changes the function: the views after n
+bodies do not depend on how threads are laid out.
 
 Variants (:data:`VARIANTS`), each a :class:`ReplayProgram`:
 
@@ -26,8 +28,8 @@ Variants (:data:`VARIANTS`), each a :class:`ReplayProgram`:
 - ``staged``: the counterpart of the script's ``depth4``: a group's plane k
   over nodes [n0, n0 + piece) is ``piece`` contiguous 128-byte rows of a
   tile's slab, bulk-copied with the channel rows into a shared-memory stage
-  (two stages per block, one block per SM), then consumed and written
-  routed.
+  (two stages per block, one mbarrier each, as many blocks as the card holds
+  at once), then consumed 8 columns a thread and written routed.
 
 The script's ``outviews`` stages from a Pallas output aliased to its input;
 the card has no such distinction, so it has no counterpart.
@@ -206,6 +208,12 @@ def replay_plain(program: ReplayProgram, views: ReplayViews, routes: dict, bodie
             cn_pass_plain(program, views.A, views.B, routes["cn_route"], views.sums)
 
 
+def max_degree(groups: np.ndarray) -> int:
+    """The largest degree of a pass's groups (0 for none): the kernel makes
+    its second launch when it is above ``csrc/hbm_wide.cuh``'s split degree."""
+    return int(groups[:, 2].max()) if len(groups) else 0
+
+
 def staged_units(groups: np.ndarray, piece: int = PIECE) -> np.ndarray:
     """The staged units of a pass: int32 [units, 2], (group index, first
     node), ``piece`` nodes each (fewer at a group's end)."""
@@ -283,8 +291,8 @@ class StageReplay:
                 len(p.cn_groups), len(p.vn_groups),
                 a["cn_units"].data_ptr(), len(self._host["cn_units"]),
                 a["vn_units"].data_ptr(), len(self._host["vn_units"]),
-                PIECE, self.stage_planes, lay.n_vars, lay.n_checks, lay.n_edges, tiles, bodies,
-                stream,
+                self.stage_planes, max_degree(p.cn_groups), max_degree(p.vn_groups),
+                lay.n_vars, lay.n_checks, lay.n_edges, tiles, bodies, stream,
             )
         launches[self.name] += 1
 
@@ -296,9 +304,10 @@ def _library():
 
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = CLibrary("stage_replay", {
-        "stage_replay": [i, i] + [p] * 8 + [i, i, p, i, p, i] + [i] * 7 + [p],
+        "stage_replay": [i, i] + [p] * 8 + [i, i, p, i, p, i] + [i] * 8 + [p],
         "stage_replay_batch_tile": [],
+        "stage_replay_piece": [],
     })
-    if lib.value("stage_replay_batch_tile") != BATCH_TILE:
-        raise RuntimeError("csrc/stage_replay.cu and kernels/stage_replay.py disagree on the tile")
+    if (lib.value("stage_replay_batch_tile"), lib.value("stage_replay_piece")) != (BATCH_TILE, PIECE):
+        raise RuntimeError("csrc/stage_replay.cu and kernels/stage_replay.py disagree on the tile or piece")
     return lib

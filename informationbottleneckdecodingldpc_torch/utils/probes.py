@@ -15,9 +15,12 @@ loops, passes, waves, iterations or bodies timed with CUDA events (``utils/peaks
   step at its f16 tensor-core rate;
 - P2/P3 (:func:`measure_reads`): bytes/s read from a 256 MB source per
   variant and chunk size, beside ``x.sum()`` over the same source;
-- P4 (:func:`measure_copies`): waves/s of each copy variant, as
-  microseconds per copy and per wait and effective bytes/s, beside
-  ``index_copy_`` for the scatter;
+- P4 (:func:`measure_copies`): waves/s of each copy variant (the card-wide
+  wave of 512 copies dealt over one block per SM; that wave on one block,
+  one SM's issue cost; a wave on each of 132 blocks), as microseconds per
+  copy and per wait and effective bytes/s, beside ``index_copy_`` of the
+  same copies for the scatter and ``index_select`` and a sum of the same
+  rows for the stage;
 - P5 (:func:`measure_stage`): ms per simulated iteration of the staged
   7-plane skeleton and its staged bytes/s, per variant, against 293.6 MB at
   3.35 TB/s;
@@ -27,8 +30,10 @@ loops, passes, waves, iterations or bodies timed with CUDA events (``utils/peaks
   (one decode, early exit off, over its bodies).
 
 Bytes are bounded by the data sheet's 3.35 TB/s; a read or copy rate above
-:data:`MAX_SHARE` of it means a byte count is wrong, and raises. There is no
-CPU measurement: every function raises without a CUDA device.
+:data:`MAX_SHARE` of it means a byte count is wrong, and raises, but for a
+P4 wave whose copies fit the L2 (:data:`L2_BYTES`): its waves after the
+first write or read the same bytes, which need not leave the L2. There is
+no CPU measurement: every function raises without a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,8 +54,9 @@ from .roofline import DATA_SHEET_BYTES_PER_S, DATA_SHEET_OPS_PER_S
 
 MIN_SECONDS = 0.1  # one launch at the final count takes at least this
 MAX_SHARE = 1.05  # of the data sheet's bytes/s, above which a byte count is wrong
+L2_BYTES = 50 * 2**20  # the H100's L2: a wave whose copies fit it repeats at L2 rates
 P4_ROWS = (1, 32, 256)  # 512 B, 16 KB, 128 KB: the TPU probe's 1, 32, 256 rows
-P4_GRID_ROWS = (1, 32)  # sizes also run on one block per SM
+P4_GRID_ROWS = (1, 32)  # sizes also run as a wave on each of 132 blocks
 P4_ENTRIES = (8, 2)  # copies per wait at 32 rows, besides a whole wave
 REPLAY_MODEL, REPLAY_BATCH = "dvbs2-64800", 1024  # P6's code and batch: 8 tiles of K3's 128
 REPLAY_CONFIG = "dvbs2_T16_0.6"  # K3's tables for its ms per body beside P6
@@ -131,15 +137,32 @@ def measure_reads(probes: list[str], device: torch.device | str = "cuda") -> dic
 
 
 def copy_variants(sms: int) -> list[p4.BulkCopies]:
-    """P4's variants: both directions at each size on one block, at the
-    smaller sizes on ``sms`` blocks, and at 16 KB with fewer copies per
-    wait."""
+    """P4's variants: both directions at each size as the card-wide wave
+    (dealt over ``sms`` blocks) and on one block (one SM's issue cost), at
+    the smaller sizes as a wave on each of ``sms`` blocks, and at 16 KB on
+    one block with fewer copies per wait."""
     out = []
     for direction in p4.DIRECTIONS:
+        out += [p4.BulkCopies(direction, rows, blocks=sms, regions=1) for rows in P4_ROWS]
         out += [p4.BulkCopies(direction, rows) for rows in P4_ROWS]
         out += [p4.BulkCopies(direction, rows, blocks=sms) for rows in P4_GRID_ROWS]
         out += [p4.BulkCopies(direction, 32, entries=e) for e in P4_ENTRIES]
     return out
+
+
+def copy_library(v: p4.BulkCopies, operands: tuple, device: torch.device):
+    """The one PyTorch call that does a P4 variant's wave, as a function of
+    no arguments, and the bytes it moves: ``index_copy_`` of the copies'
+    image rows into the target for a scatter; ``index_select`` of the rows
+    the copies read and their sum for a stage."""
+    to, frm = (torch.as_tensor(a, device=device)
+               for a in p4.scatter_rows(v.copy_dst, v.copy_smem, v.copy_rows))
+    if v.direction == "scatter":
+        image, target = operands
+        rows = image.index_select(0, frm)
+        return (lambda: target.index_copy_(0, to, rows)), rows.numel() * 4
+    (source,) = operands
+    return (lambda: source.index_select(0, to).sum(dtype=torch.int64)), len(to) * p4.ROW_BYTES
 
 
 def copy_operands(v: p4.BulkCopies, device: torch.device, seed: int = 0) -> tuple:
@@ -159,32 +182,39 @@ def copy_operands(v: p4.BulkCopies, device: torch.device, seed: int = 0) -> tupl
 
 def measure_copies(device: torch.device | str = "cuda") -> list[dict]:
     """P4: per-copy and per-wait microseconds and effective bytes/s of every
-    variant, beside ``index_copy_``'s bytes/s for the scatter."""
+    variant, beside its library call's bytes/s (:func:`copy_library`)."""
     device = _cuda(device)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    out = []
+    out, library = [], {}  # variants with the same copies share their library call's rate
     for v in copy_variants(sms):
         operands = copy_operands(v, device)
         run = v.scatter if v.direction == "scatter" else v.stage
         waves_per_s = differenced_rate(lambda n: run(*operands, waves=n), 1.0, loops=1,
                                        min_seconds=MIN_SECONDS)
-        rate = waves_per_s * v.blocks * v.wave * v.copy_bytes
+        rate = waves_per_s * v.copies * v.copy_bytes
         rec = {"name": v.name, "direction": v.direction, "copy_bytes": v.copy_bytes,
-               "blocks": v.blocks, "entries": v.entries, "copies_per_wait": v.group,
-               "us_per_copy": 1e6 / (waves_per_s * v.wave),
+               "blocks": v.blocks, "copies": v.copies, "entries": v.entries,
+               "copies_per_wait": v.group, "waits_per_wave": v.waits_per_wave,
+               "us_per_copy": 1e6 / (waves_per_s * v.copies),
                "us_per_wait": 1e6 / (waves_per_s * v.waits_per_wave), "bytes_per_s": rate}
-        line = (f"{v.direction} L={v.name.split('_')[1]} blocks={v.blocks} copies/wait={v.group}: "
-                f"{rec['us_per_copy']:.4f} us/copy, {rec['us_per_wait']:.4f} us/wait, "
-                f"{rate / 1e9:.2f} GB/s effective")
-        _bytes_rate_ok(rate, v.name)
-        if v.direction == "scatter":
-            image, target = operands
-            to, frm = (torch.as_tensor(a, device=device) for a in p4.scatter_rows(v.dst, v.smem, v.copy_rows))
-            rows = image.index_select(0, frm)
-            lib = differenced_rate(lambda n: [target.index_copy_(0, to, rows) for _ in range(n)],
-                                   rows.numel() * 4, loops=1, min_seconds=MIN_SECONDS)
-            rec["index_copy_bytes_per_s"] = lib
-            line += f" (index_copy_ {lib / 1e9:.2f} GB/s)"
+        line = (f"{v.name}: {v.copies} copies on {v.blocks} blocks, at most {v.group} a wait: "
+                f"{rec['us_per_copy']:.4f} us/copy, {rec['us_per_wait']:.4f} us/wait "
+                f"({v.waits_per_wave} waits of one warp a wave), {rate / 1e9:.2f} GB/s effective")
+        if v.copies * v.copy_bytes > L2_BYTES:
+            _bytes_rate_ok(rate, v.name)
+        else:
+            line += " (its copies fit the L2)"
+        call, moved = copy_library(v, operands, device)
+        key = (v.direction, v.copy_rows, v.regions)
+        if key not in library:
+            library[key] = differenced_rate(lambda n: [call() for _ in range(n)], moved, loops=1,
+                                            min_seconds=MIN_SECONDS)
+        lib = library[key]
+        rec["library_bytes_per_s"] = lib
+        rec["library_us_per_wave"] = 1e6 * moved / lib
+        line += (f" ({'index_copy_' if v.direction == 'scatter' else 'index_select + sum'} "
+                 f"{lib / 1e9:.2f} GB/s, {rec['library_us_per_wave']:.2f} us a wave against "
+                 f"{1e6 / waves_per_s:.2f})")
         print(line, flush=True)
         out.append(rec)
         del operands

@@ -26,8 +26,9 @@ Every bound takes the measured mean iteration count as i_eff.
 :func:`decode_bound` is the other bound, the one a kernel's record states:
 the larger of the bytes the decode must move (its input read once, its
 outputs written once) over the data sheet's memory rate and the operations
-it does, each type over its own data-sheet rate (:data:`DATA_SHEET_OPS_PER_S`;
-:func:`bound` does the arithmetic for any kernel).
+it does, each class over its own rate (:data:`DATA_SHEET_OPS_PER_S`, the
+CUDA C++ Programming Guide's per-pipe rates for compute capability 9.0 and
+the issue limit; :func:`bound` does the arithmetic for any kernel).
 """
 
 from __future__ import annotations
@@ -45,53 +46,79 @@ from ..kernels import hbm_copy, philox_planes
 from .peaks import _cuda, differenced_rate, lookup2d_peak
 
 # NVIDIA H100 SXM data sheet: 132 SMs at a 1.98 GHz boost clock and device
-# memory at 3.35 TB/s. Per SM and clock it issues 128 FP32 instructions (the
-# data sheet's 67 TFLOP/s count an FMA as two operations), 32 shared-memory
-# loads (one warp's: a table lookup each) and 16 special-function operations.
+# memory at 3.35 TB/s. Per SM and clock, from the CUDA C++ Programming
+# Guide's arithmetic instruction throughput for compute capability 9.0: 128
+# 32-bit float adds, multiplies and multiply-adds (the data sheet's 67
+# TFLOP/s count an FMA as two operations); 64 compares, minimums and
+# maximums; 16 special-function operations (reciprocal, square root,
+# logarithm, exponential, sine, cosine) and 16 of "all other type
+# conversions" (32-bit integer to float among them); 64 32-bit integer
+# multiplies and 64 32-bit logic operations; 32 shared-memory loads (one
+# warp's: a table lookup each). Whatever the pipe, each of an SM's four
+# sub-partitions issues one warp instruction per clock: 128 thread
+# instructions, the "issue" class, which every instruction counts against.
 DATA_SHEET_BYTES_PER_S = 3.35e12
 SMS, BOOST_HZ = 132, 1.98e9
 DATA_SHEET_OPS_PER_S = {
     "fp32": SMS * 128 * BOOST_HZ,
-    "lookup": SMS * 32 * BOOST_HZ,
+    "compare": SMS * 64 * BOOST_HZ,
     "sfu": SMS * 16 * BOOST_HZ,
-    "tensor_f16": 989e12,  # dense f16 tensor-core flops (P1's one-hot mma)
+    "conversion": SMS * 16 * BOOST_HZ,
+    "int32": SMS * 64 * BOOST_HZ,
+    "logic": SMS * 64 * BOOST_HZ,
+    "lookup": SMS * 32 * BOOST_HZ,
+    "issue": SMS * 4 * 32 * BOOST_HZ,
+    "tensor_f16": 989e12,  # dense f16 tensor-core flops (P1's one-hot mma), not instructions
 }
 
-MINSUM_OPS_PER_CN_EDGE = 4  # abs, min tracking, min1/min2 select, sign
-MINSUM_OP_ALU_OPS = 7  # the operations of sign(a) sign(b) min(|a|, |b|)
-# One box-plus as nvcc compiles it for sm_90a (csrc/float_groups.cuh
-# boxplus: CUDA's libm expf and log1pf, as torch's kernels call them, so K2
-# and K4 equal their twins): the FP32-pipe instructions (float add,
-# multiply, fused multiply-add, compare, select and min/max; integer and
-# branch instructions are left out) and special-function (MUFU)
-# instructions it runs on finite inputs. Counted by cuobjdump -sass of K5c's
-# box-plus chain loop (csrc/peaks.cu float_pair_kernel<BoxPlus>: 256
-# box-plus a trip, 54.125 and 2 each, 78.6 instructions in all) as built
-# for an NVIDIA H100 80GB HBM3; chip_smoke.py phase 16 counts them again. The elementwise reading, 19 operations and 2 exponentials, left
-# K5c's chain at 15.6% of its bound.
-FP32_OPCODES = ("FFMA", "FADD", "FMUL", "FSETP", "FSEL", "FMNMX")
-SFU_OPCODES = ("MUFU",)
-BOXPLUS_SASS = {"fp32": 54, "sfu": 2}
-# One application of each float op of ops/float_ops.py, by operation type.
-FLOAT_OP_COUNTS = {
-    "minsum_op": {"fp32": MINSUM_OP_ALU_OPS},
-    "boxplus": BOXPLUS_SASS,
-    "float_mix": {"fp32": 3},  # add, then clip at +-150
-    "min": {"fp32": 1},
+# The SASS opcodes of each class, for the classes a float op's or Box-Muller's
+# instructions are counted in (:func:`pipe_counts`). FSEL, a select on a
+# predicate, has no row in the Guide: it goes with the compare that sets its
+# predicate, as the second half of a compare-and-select (its own rate is not
+# measured here); I2FP, Hopper's integer-to-float conversion, goes with the
+# Guide's other conversions. Integer, predicate, move and branch
+# instructions count in "issue" only.
+PIPE_OPCODES = {
+    "fp32": ("FFMA", "FADD", "FMUL"),
+    "compare": ("FSETP", "FMNMX", "FSEL"),
+    "sfu": ("MUFU",),
+    "conversion": ("I2F", "I2FP", "F2I", "F2F", "FRND"),
+    "lookup": ("LDS",),
 }
-# The integer pipes, per SM and clock (CUDA C++ Programming Guide,
-# arithmetic instruction throughput, compute capability 9.0): 32-bit
-# multiply (64) and 32-bit logic (64).
-DATA_SHEET_OPS_PER_S.update(int32=SMS * 64 * BOOST_HZ, logic=SMS * 64 * BOOST_HZ)
-# One Philox4x32-10 group (csrc/philox_planes.cu, sim/rng.py): ten rounds of
-# two 32 x 32 -> 64-bit products, each a low and a high word, and two
-# three-input XORs.
+# One application of each float op of ops/float_ops.py as nvcc compiles it
+# for sm_90a (csrc/float_groups.cuh, as K2 and K4 run it; box-plus takes
+# CUDA's libm expf and log1pf, as torch's kernels call them, so K2 and K4
+# equal their twins): SASS instructions per opcode of one trip of K5c's
+# chain loop (csrc/peaks.cu float_pair_kernel<Op>) over the applications in
+# it (1024 a trip; 256 for box-plus), the paths libm takes on finite inputs
+# only, as built for an NVIDIA H100 80GB HBM3 (cuobjdump -sass;
+# chip_smoke.py phase 16 counts them again): what the card runs, not the
+# operations of the formula, which leave out libm's work.
+FLOAT_OP_SASS = {
+    "minsum_op": {"FSEL": 3.0, "FSETP": 2.0517578125, "FMUL": 2.0, "FMNMX": 1.0,
+                  "P2R": 0.00390625, "ISETP": 0.00390625, "UIADD3": 0.0009765625,
+                  "UISETP": 0.0009765625, "PLOP3": 0.0009765625, "BRA": 0.0009765625},
+    "boxplus": {"FFMA": 30.0, "FADD": 10.0, "FMUL": 8.0, "IADD3": 6.0, "LOP3": 4.14453125,
+                "FSEL": 3.0, "ISETP": 2.16796875, "FSETP": 2.125, "BRA": 2.00390625, "BSSY": 2.0,
+                "SHF": 2.0, "MUFU": 2.0, "I2FP": 2.0, "BSYNC": 2.0, "FMNMX": 1.0, "P2R": 0.16796875,
+                "HFMA2": 0.0078125, "MOV": 0.0078125, "UIADD3": 0.00390625, "UISETP": 0.00390625,
+                "PLOP3": 0.00390625},
+    "float_mix": {"FMNMX": 2.0, "FADD": 1.0, "UIADD3": 0.0009765625, "ISETP": 0.0009765625,
+                  "BRA": 0.0009765625},  # add, then clip at +-150
+    "min": {"FMNMX": 1.0, "UIADD3": 0.0009765625, "ISETP": 0.0009765625, "BRA": 0.0009765625},
+}
+MINSUM_OPS_PER_CN_EDGE = 4  # abs, min tracking, min1/min2 select, sign (cell_roofline's count)
+MINSUM_OP_ALU_OPS = 7  # the operations of sign(a) sign(b) min(|a|, |b|) (cell_roofline's count)
+# The min-sum decoders' float work per edge and body by class (decode_bound):
+# a check edge's abs, min tracking, min1/min2 select and sign all compare or
+# select; a variable edge's add into the total and subtract, and its clip at
+# +-150 (a minimum and a maximum).
+MINSUM_CN_OPS_PER_EDGE = {"compare": 4}
+VN_OPS_PER_EDGE = {"fp32": 2, "compare": 2}
+# The integer pipes' work of one Philox4x32-10 group (csrc/philox_planes.cu,
+# sim/rng.py): ten rounds of two 32 x 32 -> 64-bit products, each a low and
+# a high word, and two three-input XORs.
 PHILOX_GROUP_OPS = {"int32": 40, "logic": 20}
-# The SASS opcodes counted per operation type in a channel-input kernel's
-# instructions (chip_smoke.py phase 25): the FP32 pipe, the special-function
-# unit and shared-memory loads.
-PIPE_OPCODES = {"fp32": FP32_OPCODES, "sfu": SFU_OPCODES, "lookup": ("LDS",)}
-VN_OPS_PER_EDGE = 4  # add into the total, subtract, clip (two)
 COPY_BYTES = 256 * 1024 * 1024  # one K6 buffer, five times the 50 MB L2
 
 
@@ -193,24 +220,36 @@ def _table_bytes(tables: TrellisTables) -> int:
     return sum(np.asarray(getattr(tables, n)).size for n in names)
 
 
-def pipe_counts(opcodes: dict[str, int]) -> dict[str, int]:
-    """Instructions per type of :data:`PIPE_OPCODES` in a count of SASS
+def pipe_counts(opcodes: dict[str, float]) -> dict[str, float]:
+    """Instructions per class of :data:`PIPE_OPCODES` in a count of SASS
     opcodes."""
     return {k: sum(opcodes.get(op, 0) for op in ops) for k, ops in PIPE_OPCODES.items()}
+
+
+def sass_counts(opcodes: dict[str, float]) -> dict[str, float]:
+    """:func:`pipe_counts` and, as "issue", every instruction of the count:
+    the operations of a loop whose every instruction is the work."""
+    return {**{k: n for k, n in pipe_counts(opcodes).items() if n}, "issue": sum(opcodes.values())}
+
+
+# One application of each float op by class, from its SASS.
+FLOAT_OP_COUNTS = {op: sass_counts(opcodes) for op, opcodes in FLOAT_OP_SASS.items()}
+BOXPLUS_SASS = FLOAT_OP_COUNTS["boxplus"]
 
 
 def channel_input_ops(
     kind: str, rows: int, batch: int, box_muller: dict[str, float], thresholds: int = 0
 ) -> dict[str, float]:
-    """The operations by type (:data:`DATA_SHEET_OPS_PER_S`) that the
+    """The operations by class (:data:`DATA_SHEET_OPS_PER_S`) that the
     [rows, batch] output of the channel-input ``kind`` (a plane or fused
     kind of ``kernels/philox_planes.py``) needs: its Philox groups
-    (:data:`PHILOX_GROUP_OPS`); per element a uniform's scaling or a normal's
-    Box-Muller, ``box_muller`` by type (the libdevice ``logf``, ``sqrtf`` and
-    ``cosf`` its ``==`` requires, counted from its SASS); y's multiply and
-    add; the true LLR's two multiplies; and a search over ``thresholds``
-    values of log2 of its outcomes in compares and shared-memory loads, one
-    more load for the cluster's LLR."""
+    (:data:`PHILOX_GROUP_OPS`); per element a uniform's conversion and
+    scaling or a normal's Box-Muller, ``box_muller`` by class (the libdevice
+    ``logf``, ``sqrtf`` and ``cosf`` its ``==`` requires, counted from its
+    SASS by :func:`pipe_counts`); y's multiply and add; the true LLR's two
+    multiplies; and a search over ``thresholds`` values of log2 of its
+    outcomes in compares and shared-memory loads, one more load for the
+    cluster's LLR. :func:`bound` adds their issue."""
     draw, consumer, _ = philox_planes.FUSED.get(kind, (kind, "plane", False))
     per = philox_planes.ELEMENTS_PER_GROUP[draw]
     groups = -(-rows // per) * batch
@@ -218,7 +257,7 @@ def channel_input_ops(
     elements = rows * batch
     per_element = collections.Counter()
     if draw == "uniform":
-        per_element["fp32"] += 1
+        per_element.update(conversion=1, fp32=1)
     elif draw == "normal":
         per_element.update(box_muller)
         if consumer != "plane":
@@ -227,7 +266,7 @@ def channel_input_ops(
         per_element["fp32"] += 2
     elif consumer in ("clusters", "llrs"):
         probes = math.ceil(math.log2(thresholds + 1))
-        per_element.update(fp32=probes, lookup=probes + (consumer == "llrs"))
+        per_element.update(compare=probes, lookup=probes + (consumer == "llrs"))
     for k, n in per_element.items():
         ops[k] = ops.get(k, 0) + n * elements
     return ops
@@ -235,14 +274,24 @@ def channel_input_ops(
 
 def bound(moved: float, ops: dict[str, float]) -> dict:
     """The least time on an H100 SXM (data sheet) of moving ``moved`` bytes
-    and doing ``ops`` operations (type -> count, the types of
+    and doing ``ops`` operations (class -> count, the classes of
     :data:`DATA_SHEET_OPS_PER_S`): the larger of the bytes over the memory
-    rate and the busiest type's count over its rate, named by ``bound_by``."""
+    rate and the busiest class's count over its rate, named by ``bound_by``
+    and ``busiest``. Every instruction also counts against the issue
+    limit: "issue" is at least the sum of the other classes but the tensor
+    cores' flops (a count of a loop's every instruction can give more)."""
+    ops = {k: n for k, n in ops.items() if n}
+    issued = sum(n for k, n in ops.items() if k not in ("issue", "tensor_f16"))
+    if issued or "issue" in ops:
+        ops["issue"] = max(ops.get("issue", 0.0), issued)
     io_ms = moved / DATA_SHEET_BYTES_PER_S * 1e3
-    ops_ms = max((n / DATA_SHEET_OPS_PER_S[k] for k, n in ops.items()), default=0.0) * 1e3
+    times = {k: n / DATA_SHEET_OPS_PER_S[k] * 1e3 for k, n in ops.items()}
+    busiest = max(times, key=times.get, default=None)
+    ops_ms = times[busiest] if busiest else 0.0
     return {
         "io_ms": io_ms,
         "compute_ms": ops_ms,
+        "busiest": busiest,
         "bound_ms": max(io_ms, ops_ms),
         "bound_by": "bytes" if io_ms >= ops_ms else "operations",
     }
@@ -258,8 +307,10 @@ def decode_bound(
     """The least time a decode of ``batch`` codewords running ``bodies``
     loop bodies each (the measured mean) could take on an H100 SXM
     (:func:`bound`): its input read once and outputs written once, and its
-    operations: the IB decoder's table lookups, the float decoders' FP32
-    operations and box-plus's exponentials."""
+    operations by class: the IB decoder's table lookups; the float decoders'
+    work per edge (:data:`MINSUM_CN_OPS_PER_EDGE`, :data:`VN_OPS_PER_EDGE`;
+    box-plus as its SASS, :data:`BOXPLUS_SASS`) and the decision's sums,
+    each instruction also against the issue limit."""
     per_cw = 4 * 2 * layout.n_vars + 8  # input, outputs, unsat and iterations
     if decoder == "ib":
         per_body = sum(ib_lookup_counts(layout, tables).values())
@@ -269,15 +320,18 @@ def decode_bound(
         ops = {"lookup": batch * (cn_part + bodies * per_body + layout.n_edges)}
         moved = batch * per_cw + _table_bytes(tables)
     else:
-        sfu = 0.0
+        per_body = collections.Counter({k: n * layout.n_edges for k, n in VN_OPS_PER_EDGE.items()})
         if decoder == "bp":
             apps = float_cn_applications(layout)
-            cn_ops = FLOAT_OP_COUNTS["boxplus"]["fp32"] * apps
-            sfu = batch * bodies * FLOAT_OP_COUNTS["boxplus"]["sfu"] * apps
+            vn_issue = sum(per_body.values())
+            per_body.update({k: n * apps for k, n in BOXPLUS_SASS.items()})
+            per_body["issue"] += vn_issue  # the box-plus count holds only its own
         else:
-            cn_ops = MINSUM_OPS_PER_CN_EDGE * cn_edges(layout)
-        fp32 = batch * (bodies * (cn_ops + VN_OPS_PER_EDGE * layout.n_edges) + layout.n_edges)
-        ops = {"fp32": fp32, "sfu": sfu}
+            per_body.update({k: n * cn_edges(layout) for k, n in MINSUM_CN_OPS_PER_EDGE.items()})
+        ops = {k: float(batch * bodies * n) for k, n in per_body.items()}
+        ops["fp32"] += batch * layout.n_edges  # the decision's sums
+        if "issue" in ops:
+            ops["issue"] += batch * layout.n_edges
         moved = batch * per_cw
     return {"bytes": int(moved), "ops": {k: float(n) for k, n in ops.items()}, **bound(moved, ops)}
 

@@ -367,22 +367,31 @@ def test_the_profile_times_each_step_from_its_first_draw_to_its_decode():
 
 
 def test_pipe_counts_of_sass_opcodes():
-    got = roofline.pipe_counts({"IMAD": 4, "LOP3": 3, "FFMA": 2, "FSETP": 1, "MUFU": 1, "LDS": 5})
-    assert got == {"fp32": 3, "sfu": 1, "lookup": 5}
+    got = roofline.pipe_counts({"IMAD": 4, "LOP3": 3, "FFMA": 2, "FSETP": 1, "FSEL": 2, "MUFU": 1,
+                                "I2FP": 2, "LDS": 5})
+    # Add, multiply and FMA at 128 per SM and clock; compare, min, max and
+    # select at 64; conversions at 16; integer instructions only in issue.
+    assert got == {"fp32": 2, "compare": 3, "sfu": 1, "conversion": 2, "lookup": 5}
     assert set(got) <= set(roofline.DATA_SHEET_OPS_PER_S)
+    assert roofline.sass_counts({"IMAD": 4, "FFMA": 2}) == {"fp32": 2, "issue": 6}
     b = roofline.bound(0, {"int32": roofline.DATA_SHEET_OPS_PER_S["int32"] / 1e3})
     assert b["bound_ms"] == pytest.approx(1.0) and b["bound_by"] == "operations"
+    assert b["busiest"] == "int32"
 
 
 @pytest.mark.parametrize("kind, thresholds, per_element", [
     ("bits", 0, {"int32": 40 / 128, "logic": 20 / 128}),
-    ("uniform", 0, {"int32": 10, "logic": 5, "fp32": 1}),
+    ("uniform", 0, {"int32": 10, "logic": 5, "conversion": 1, "fp32": 1}),
     ("normal", 0, {"int32": 20, "logic": 10, "fp32": 40, "sfu": 3}),
-    ("uniform_clusters", 15, {"int32": 10, "logic": 5, "fp32": 1 + 4, "lookup": 4}),
-    ("uniform_llrs", 31, {"int32": 10, "logic": 5, "fp32": 1 + 5, "lookup": 6}),
+    ("uniform_clusters", 15, {"int32": 10, "logic": 5, "conversion": 1, "fp32": 1, "compare": 4,
+                              "lookup": 4}),
+    ("uniform_llrs", 31, {"int32": 10, "logic": 5, "conversion": 1, "fp32": 1, "compare": 5,
+                          "lookup": 6}),
     ("normal_true", 0, {"int32": 20, "logic": 10, "fp32": 40 + 2 + 2, "sfu": 3}),
-    ("encoded_clusters", 15, {"int32": 20, "logic": 10, "fp32": 40 + 2 + 4, "sfu": 3, "lookup": 4}),
-    ("encoded_llrs", 15, {"int32": 20, "logic": 10, "fp32": 40 + 2 + 4, "sfu": 3, "lookup": 5}),
+    ("encoded_clusters", 15, {"int32": 20, "logic": 10, "fp32": 40 + 2, "compare": 4, "sfu": 3,
+                              "lookup": 4}),
+    ("encoded_llrs", 15, {"int32": 20, "logic": 10, "fp32": 40 + 2, "compare": 4, "sfu": 3,
+                          "lookup": 5}),
     ("encoded_true", 0, {"int32": 20, "logic": 10, "fp32": 40 + 2 + 2, "sfu": 3}),
 ])
 def test_channel_input_ops(kind, thresholds, per_element):

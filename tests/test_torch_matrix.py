@@ -317,13 +317,68 @@ def test_decode_bound_counts_one_read_one_write_and_the_lookups():
     assert b["compute_ms"] == pytest.approx(lookups / (132 * 32 * 1.98e9) * 1e3, rel=1e-12)
     assert b["bytes"] >= 4096 * 8 * 1296
     assert b["bound_ms"] == max(b["io_ms"], b["compute_ms"]) and b["bound_by"] == "operations"
+    # Min-sum: a check edge's abs, min tracking, select and sign at the
+    # compare rate (64 per SM and clock); a variable edge's add and subtract
+    # at 128 and its clip's minimum and maximum at 64; the decision's sums.
     f = roofline.decode_bound(wlan, "minsum", 4096, 49.0)
-    assert f["ops"] == {"fp32": 4096 * (49.0 * (4 * 4644 + 4 * 4644) + 4644), "sfu": 0.0}
-    assert f["compute_ms"] == pytest.approx(f["ops"]["fp32"] / (132 * 128 * 1.98e9) * 1e3, rel=1e-12)
+    assert f["ops"] == {"fp32": 4096 * (49.0 * 2 * 4644 + 4644), "compare": 4096 * 49.0 * 6 * 4644}
+    assert f["busiest"] == "compare"
+    assert f["compute_ms"] == pytest.approx(f["ops"]["compare"] / (132 * 64 * 1.98e9) * 1e3, rel=1e-12)
+    # BP: each box-plus as its SASS, 78.6 instructions of which 48 add,
+    # multiply or FMA: the issue limit bounds it.
     bp = roofline.decode_bound(wlan, "bp", 4096, 49.0)
     assert bp["ops"]["sfu"] == 4096 * 49.0 * 2 * 10044
-    assert bp["compute_ms"] == pytest.approx(bp["ops"]["fp32"] / (132 * 128 * 1.98e9) * 1e3, rel=1e-12)
+    issue = 4096 * (49.0 * (roofline.BOXPLUS_SASS["issue"] * 10044 + 4 * 4644) + 4644)
+    assert bp["ops"]["issue"] == pytest.approx(issue, rel=1e-12) and bp["busiest"] == "issue"
+    assert bp["compute_ms"] == pytest.approx(issue / (132 * 128 * 1.98e9) * 1e3, rel=1e-12)
     assert roofline.bound(0, {"sfu": 132 * 16 * 1.98e9})["compute_ms"] == pytest.approx(1e3)
+
+
+@pytest.mark.parametrize("klass, per_clock", [
+    ("fp32", 128), ("compare", 64), ("sfu", 16), ("conversion", 16), ("int32", 64), ("logic", 64),
+    ("lookup", 32), ("issue", 128)])
+def test_pipe_classes_follow_the_guide_for_compute_capability_9(klass, per_clock):
+    """One second of one class's work on 132 SMs at 1.98 GHz, at the CUDA
+    C++ Programming Guide's rate per SM and clock for compute capability
+    9.0; alone in a loop, a class is also held to the issue limit, which
+    only the classes at 128 a clock reach."""
+    n = 132 * per_clock * 1.98e9
+    b = roofline.bound(0, {klass: n})
+    assert b["compute_ms"] == pytest.approx(1e3, rel=1e-12) and b["busiest"] == klass
+    assert roofline.DATA_SHEET_OPS_PER_S[klass] == pytest.approx(n, rel=1e-12)
+
+
+def test_issue_limit_bounds_a_loop_whose_instructions_outnumber_any_pipe():
+    """Each sub-partition issues one warp instruction a clock, 128 thread
+    instructions per SM whatever the pipe: 100 adds and 40 compares take
+    longer than either pipe alone needs, and a SASS count of a loop's every
+    instruction can add what no class counts."""
+    rate = 132 * 1.98e9
+    b = roofline.bound(0, {"fp32": 100 * rate, "compare": 40 * rate})
+    assert b["busiest"] == "issue" and b["compute_ms"] == pytest.approx(140 / 128 * 1e3, rel=1e-12)
+    assert b["compute_ms"] > max(100 / 128, 40 / 64) * 1e3
+    b = roofline.bound(0, {"fp32": 100 * rate, "issue": 160 * rate})
+    assert b["busiest"] == "issue" and b["compute_ms"] == pytest.approx(160 / 128 * 1e3, rel=1e-12)
+    # The tensor cores' flops are no instructions; bytes alone bound a copy.
+    assert roofline.bound(0, {"tensor_f16": 989e12})["busiest"] == "tensor_f16"
+    assert roofline.bound(3.35e9, {}) == {"io_ms": pytest.approx(1.0), "compute_ms": 0.0,
+                                          "busiest": None, "bound_ms": pytest.approx(1.0),
+                                          "bound_by": "bytes"}
+
+
+def test_float_op_counts_by_class_from_their_sass():
+    """K5c's four ops by class: box-plus's 78.6 instructions an application
+    (48 add, multiply or FMA) put it under the issue limit; the min-sum op's
+    6.05 compares and selects, add+clip's 2 and min's 1 under the compare
+    rate."""
+    counts = roofline.FLOAT_OP_COUNTS
+    assert counts["boxplus"] == {"fp32": 48.0, "compare": 6.125, "sfu": 2.0, "conversion": 2.0,
+                                 "issue": pytest.approx(78.637, abs=1e-3)}
+    busiest = {op: roofline.bound(0, c)["busiest"] for op, c in counts.items()}
+    assert busiest == {"minsum_op": "compare", "boxplus": "issue", "float_mix": "compare",
+                       "min": "compare"}
+    assert counts["min"]["compare"] == 1 and counts["float_mix"]["compare"] == 2
+    assert roofline.BOXPLUS_SASS is counts["boxplus"]
 
 
 # -- backend='xla' and the regular N=8000 code through the engine -------------------

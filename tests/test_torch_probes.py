@@ -14,7 +14,8 @@ shrunk through their module globals:
   schedule's;
 - P4: the rows the stage direction leaves in slot 0 are those the port's
   tables send there last, and ``build_tiny_loops``' loop count is the port's
-  waits per wave;
+  waits per wave with the TPU's one issuer; the card-wide deal of a wave
+  over blocks and warps issues every copy once;
 - the plain checksums and the scatter against numpy loops; the wrappers'
   refusals and the entry point's refusal of the CPU.
 """
@@ -197,7 +198,11 @@ def test_waits_per_wave_match_build_tiny_loops(monkeypatch, entries):
     script = load_script("dma_probe", monkeypatch, VMEM_ROWS=256, **P4_GEOMETRY)
     _, n_loops = script.build_tiny_loops(4, 1, entries)
     v = p4.BulkCopies("scatter", 4, entries=entries, wave=16, target_rows=1 << 12, region_rows=256)
-    assert v.waits_per_wave == n_loops
+    # The TPU probe's one issuer: one block, one warp, the whole wave.
+    one = p4.issue_groups("scatter", v.copy_smem, 4, v.group, blocks=1, warps=1)
+    assert len(one[0, 0]) == n_loops
+    # The kernel's eight issuing warps wait for 2 copies each.
+    assert v.waits_per_wave == -(-2 // entries)
 
 
 def test_copy_tables_and_groups():
@@ -214,7 +219,8 @@ def test_copy_tables_and_groups():
     assert [p4.group_size("stage", 32, e) for e in (8, 2)] == [8, 2]
     assert p4.group_size("scatter", 256, 512) == 512
     names = [v.name for v in probes.copy_variants(132)]
-    assert len(names) == len(set(names)) == 14 and "stage_16KB_x1_e8" in names
+    assert len(names) == len(set(names)) == 20 and "stage_16KB_x1_e8" in names
+    assert {f"{d}_{s}_card" for d in p4.DIRECTIONS for s in ("512B", "16KB", "128KB")} <= set(names)
 
 
 @pytest.mark.parametrize("blocks,copy_rows", [(1, 1), (1, 4), (3, 4), (3, 16)])
@@ -244,6 +250,74 @@ def test_scatter_and_stage_plain_match_numpy_loops(blocks, copy_rows):
     want = np.array(sums, np.int64).astype(np.uint32).view(np.int32)
     assert np.array_equal(stage.stage(torch.as_tensor(source), waves=2).numpy(), want)
     assert np.array_equal(stage.stage(torch.as_tensor(source), waves=0).numpy(), np.zeros(blocks, np.int32))
+    assert sum(p4.launches.values()) == 0
+
+
+def stage_plain_one_block(source, dst, smem, copy_rows, waves=1):
+    """The stage's plain version before the wave was dealt over the card
+    (one block's sums, each slot holding the last copy into it), kept to
+    hold the dealt one equal to it on one block."""
+    blocks, wave = dst.shape
+    if waves == 0:
+        return torch.zeros(blocks, dtype=torch.int32, device=source.device)
+    last = {int(s): k for k, s in enumerate(smem)}
+    rows = dst[:, sorted(last.values())][:, :, None] + np.arange(copy_rows)
+    picked = source.index_select(0, torch.as_tensor(rows.reshape(-1), device=source.device))
+    return p4.wrap_int32(picked.view(blocks, -1).sum(1, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("direction", p4.DIRECTIONS)
+@pytest.mark.parametrize("copy_rows,blocks,regions", [  # the card-wide, x1 and x132 variants
+    (r, b, g) for r in (1, 32, 256) for b, g in ((132, 1), (1, 1), (132, 132)) if g == 1 or r < 256])
+def test_card_wide_deal_issues_every_copy_once(direction, copy_rows, blocks, regions):
+    v = p4.BulkCopies(direction, copy_rows, blocks=blocks, regions=regions)
+    issued = [k for groups in v.groups.values() for g in groups for k in g]
+    assert sorted(issued) == list(range(v.copies)) and v.copies == regions * p4.WAVE
+    g = p4.spacing(copy_rows)
+    for (b, w), groups in v.groups.items():
+        assert 0 <= w < p4.WARPS and all(k % blocks == b for grp in groups for k in grp)
+        assert all(0 < len(grp) <= v.group for grp in groups)
+        if direction == "stage":  # a warp owns its slots; no slot twice in flight
+            slots = [[v.copy_smem[k] // g for k in grp] for grp in groups]
+            assert all(s % p4.WARPS == w for grp in slots for s in grp)
+            assert all(len(set(grp)) == len(grp) for grp in slots)
+    # A block's copies land in the slots of their share positions; a scatter
+    # block loads the image slots of its share's length, no more.
+    for b in range(min(blocks, v.copies)):
+        share = np.arange(b, v.copies, blocks)
+        assert np.array_equal(v.copy_smem[share], v.smem[:len(share)])
+        mask = p4.share_slots(v.smem, copy_rows, len(share))
+        assert mask == sum(1 << int(s) for s in set(v.copy_smem[share] // g))
+    if regions == 1:  # the card-wide wave is the one-block wave's copies
+        assert np.array_equal(v.copy_dst, p4.copy_tables(copy_rows)[0][0])
+
+
+@pytest.mark.parametrize("blocks,copy_rows", [(1, 1), (3, 1), (3, 4), (5, 16)])
+def test_dealt_scatter_and_stage_plain_match_numpy_loops(blocks, copy_rows):
+    geometry = dict(wave=16, target_rows=1 << 12, region_rows=64, regions=1)
+    rng = np.random.default_rng(5)
+    image = rng.integers(-2**31, 2**31, (64, 128)).astype(np.int32)
+    scatter = p4.BulkCopies("scatter", copy_rows, blocks, **geometry)
+    to, frm = (torch.as_tensor(a) for a in p4.scatter_rows(scatter.copy_dst, scatter.copy_smem, copy_rows))
+    want = torch.zeros((scatter.target_rows, 128), dtype=torch.int32)
+    want.index_copy_(0, to, torch.as_tensor(image).index_select(0, frm))  # the library call
+    got = scatter.scatter(torch.as_tensor(image), torch.zeros_like(want), waves=2)
+    assert torch.equal(got, want)
+
+    stage = p4.BulkCopies("stage", copy_rows, blocks, **geometry)
+    source = rng.integers(-2**31, 2**31, (stage.target_rows, 128)).astype(np.int32)
+    sums = []
+    for b in range(blocks):  # block b's share: copies b, b + blocks, ... into slots of their positions
+        region = np.zeros((64, 128), np.int64)
+        for i, k in enumerate(range(b, 16, blocks)):
+            to_, frm_ = stage.smem[i], stage.dst[0, k]
+            region[to_:to_ + copy_rows] = source[frm_:frm_ + copy_rows]
+        sums.append(region.sum() & 0xFFFFFFFF)
+    want = np.array(sums, np.int64).astype(np.uint32).view(np.int32)
+    assert np.array_equal(stage.stage(torch.as_tensor(source), waves=2).numpy(), want)
+    if blocks == 1:
+        old = stage_plain_one_block(torch.as_tensor(source), stage.dst, stage.smem, copy_rows)
+        assert np.array_equal(old.numpy(), want)
     assert sum(p4.launches.values()) == 0
 
 

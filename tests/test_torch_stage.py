@@ -12,8 +12,11 @@ other probes:
   (groups, chunk strides and counts from ``KH._group_chunk_counts`` and
   ``KH.chunk_geom``, the channel staging), and the rows it stages are the
   rows the port's replay reads, once each;
-- the plain checksums and views against numpy loops on small layouts, and
-  the wrappers' and the entry point's refusals.
+- the plain checksums and views against numpy loops on small layouts; P6's
+  kernel as a plain model of K3's wide passes (``csrc/hbm_wide.cuh``: each
+  thread's node rows and 8- or 4-column chunk, the degree split, the fold
+  on 32-bit words of four columns) covering every (node, column) once and
+  equal to the plain replay; the wrappers' and the entry point's refusals.
 """
 
 import types
@@ -241,6 +244,95 @@ def test_staged_replays_exact(ira):
     units = p6.staged_units(p6.replay_program(ira, "exact").vn_groups, piece=50)
     assert units.tolist() == [[0, 0], [1, 0], [1, 50], [1, 100], [1, 150], [1, 200],
                               [2, 0], [2, 50], [2, 100], [2, 150], [2, 200]]
+
+
+WIDE_THREADS, SPLIT_DEGREE = 256, 8  # csrc/hbm_wide.cuh's kThreads and kSplitDegree
+
+
+def row_items(bt, v, grid, block, tid):
+    """``hbm_wide::row_items``: a thread's first node row, node step and first
+    column at ``v`` columns an item in blocks of whole rows."""
+    lanes = bt // v
+    threads = WIDE_THREADS // lanes * lanes
+    t = block * threads + tid
+    return t // lanes, grid * (threads // lanes), t % lanes * v
+
+
+def wide_items(bt, v, grid, n):
+    """Every (node, first column) the threads of a ``grid``-block wide pass
+    visit in a group of ``n`` nodes, with repeats."""
+    lanes = bt // v
+    threads = WIDE_THREADS // lanes * lanes
+    out = []
+    for block in range(grid):
+        for tid in range(threads):
+            node, step, c0 = row_items(bt, v, grid, block, tid)
+            out += [(m, c0) for m in range(node, n, step)]
+    return out
+
+
+@pytest.mark.parametrize("v", [8, 4])
+@pytest.mark.parametrize("grid", [1, 3, 17])
+def test_wide_pass_visits_every_node_column_once(v, grid):
+    for n in (1, 5, 37, 200):
+        items = wide_items(p6.BATCH_TILE, v, grid, n)
+        assert sorted(items) == [(m, c) for m in range(n) for c in range(0, p6.BATCH_TILE, v)]
+
+
+def wide_replay(program, views, routes, bodies):
+    """P6's kernel as a plain model: the views as 32-bit words of four
+    columns; per group of the low range (degree <= 8) and then the high
+    one, each node's input rows loaded whole, output k = the XOR of every
+    input word (and the channel's) ^ input k ^ k in each byte, stored at its
+    route; ``nowrite`` sums the bytes of the words it reads (as ``__dp4a``
+    with 0x01010101)."""
+    A, B, chg = (x.numpy().view(np.uint32).copy() for x in (views.A, views.B, views.chg))
+    sums = views.sums.numpy().astype(np.int64)
+    cn_route, vn_route = (routes[k].numpy() for k in ("cn_route", "vn_route"))
+
+    def byte_sum(words):
+        return sum(((words >> s) & 0xFF).astype(np.int64).sum((1, 2)) for s in (0, 8, 16, 24))
+
+    def ranged(groups):
+        return [g for hi in (False, True) for g in groups.tolist() if (g[2] > SPLIT_DEGREE) == hi]
+
+    for _ in range(bodies):
+        for off, n, d, node in ranged(program.vn_groups):
+            ch = chg[:, node:node + n] if program.chv else np.zeros_like(chg[:, :n])
+            rows = B[:, off:off + d * n].reshape(len(B), d, n, -1) if d > 1 else np.zeros((len(B), 0, n, 32), np.uint32)
+            if not program.write:
+                sums += byte_sum(ch) + sum(byte_sum(rows[:, k]) for k in range(rows.shape[1]))
+                continue
+            if d == 1:
+                A[:, vn_route[off:off + n]] = ch
+                continue
+            x = ch ^ np.bitwise_xor.reduce(rows, axis=1)
+            for k in range(d):
+                A[:, vn_route[off + k * n:off + (k + 1) * n]] = x ^ rows[:, k] ^ np.uint32(k * 0x01010101)
+        for off, n, d in ranged(program.cn_groups):
+            rows = A[:, off:off + d * n].reshape(len(A), d, n, -1)
+            if not program.write:
+                sums += sum(byte_sum(rows[:, k]) for k in range(d))
+                continue
+            x = np.bitwise_xor.reduce(rows, axis=1)
+            for k in range(d):
+                B[:, cn_route[off + k * n:off + (k + 1) * n]] = x ^ rows[:, k] ^ np.uint32(k * 0x01010101)
+    wrap = (sums & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    return A.view(np.uint8), B.view(np.uint8), wrap
+
+
+@pytest.mark.parametrize("variant", p6.VARIANTS)
+def test_wide_replay_model_equals_the_plain_replay(ira, variant):
+    views = p6.ReplayViews.random(ira, 256, "cpu", seed=6)
+    replay = p6.StageReplay(ira, variant)
+    routes = {k: torch.as_tensor(a) for k, a in (("cn_route", ira.cn_to_vn_row), ("vn_route", ira.vn_to_cn_row))}
+    want = wide_replay(replay.program, views, routes, bodies=2)
+    replay(views, bodies=2)
+    assert [np.array_equal(g.numpy(), w) for g, w in zip((views.A, views.B, views.sums), want)] == [True] * 3
+    # One launch a pass on this code, as on DVB-S2: no degree above the split.
+    assert p6.max_degree(replay.program.cn_groups) <= SPLIT_DEGREE
+    assert p6.max_degree(replay.program.vn_groups) <= SPLIT_DEGREE
+    assert p6.max_degree(replay.program.vn_groups[:0]) == 0
 
 
 # -- refusals ---------------------------------------------------------------------
