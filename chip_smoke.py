@@ -127,10 +127,15 @@ the port's decoder construction.
     data-sheet bounds), every variant launched;
 23. P2/P3, every read variant and chunk size (seq, 7 strided streams at 4,
     16 and 48 KB; the table and nested variants at 4 and 16 KB) over the 256
-    MB source on one block per SM: per-block checksums of one pass equal to
-    the plain version, each timed (``x.sum()`` beside seq); then the entry
-    point's P2/P3, each rate against 3.35 TB/s and ``copy_`` of phase 18
-    (above 1.05 x 3.35 TB/s the byte count is wrong: raise);
+    MB source on one block per SM, with its slots and bytes in flight per
+    SM: per-block checksums of one pass equal to the plain version (the ring
+    variants also at two blocks per SM), each timed by events over 5 calls
+    beside its library call (``x.sum()`` for seq, the sum of the 7 planes it
+    reads for the others, whose total equals its checksums'); then the
+    entry point's P2/P3, each rate against 3.35 TB/s and ``copy_`` of phase
+    18 (above 1.05 x 3.35 TB/s the byte count is wrong: raise), and a pass's
+    device time from it (bytes over the rate differenced over passes in one
+    launch), the time the kernels' line records;
 24. P4, scatter and stage at 512 B, 16 KB and 128 KB as the card-wide wave
     (512 copies dealt over one block per SM, 8 issuing warps a block) and on
     one block (one SM's issue cost), at 512 B and 16 KB as a wave on each of
@@ -633,29 +638,65 @@ def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict
     # -- 23: P2/P3, reads staged by bulk copies ------------------------------------------
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     src = probes.read_source(dev, seed=23)
-    read_rows = {}
+    read_rows, library_ms_of = {}, {}  # variants that read the same bytes share their library call
     for variant, kb in dict.fromkeys(v for p in ("p2", "p3") for v in p23.PROBES[p]):
         probe = p23.BulkRead(variant, kb * 1024 // p23.ROW_BYTES)
         got = probe(src)
         want, plain_ms_k = timed_plain(lambda: probe.plain(src, sms))
         if not torch.equal(got, want):
             raise AssertionError(f"P2/P3 {probe.name} checksums disagree with the plain version")
+        # The one PyTorch call over the same words: x.sum() for seq (the whole
+        # source), the 7 planes' sum for the others, whose total is the
+        # checksums' (wrapping).
+        if variant == "seq":
+            call, moved = (lambda: src.sum()), src.numel() * 4
+        else:
+            call, moved = probes.read_library(probe, src)
+            if p23.wrap_int32(call()) != p23.wrap_int32(got.long().sum()):
+                raise AssertionError(f"the 7 planes' sum is not {probe.name}'s wrapping total")
+        if moved not in library_ms_of:
+            library_ms_of[moved] = cuda_ms(call, reps=5)
         b = roofline.bound(probe.bytes_per_pass + 4 * sms, {})
         read_rows[probe.name] = dict(
-            kind=variant, max_abs_err=0, ms=cuda_ms(lambda: probe(src), reps=5), plain_ms=plain_ms_k,
-            library_ms=cuda_ms(lambda: src.sum(), reps=5) if variant == "seq" else None,
-            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+            kind=variant, max_abs_err=0, event_ms=cuda_ms(lambda: probe(src), reps=5),
+            plain_ms=plain_ms_k, library_ms=library_ms_of[moved],
+            bound_ms=b["bound_ms"], bound_by=b["bound_by"], slots=probe.slots(),
+            bytes_in_flight_per_sm=probe.bytes_in_flight_per_sm(),
         )
-        print(f"[23 exact] {probe.name}: {probe.units} copies of {kb} KB on {sms} blocks, checksums "
-              f"equal to the plain version; kernel {read_rows[probe.name]['ms']:.4f} ms, plain "
-              f"{plain_ms_k:.1f} ms, bound {b['bound_ms']:.4f} ms on {card}", flush=True)
-    del src, got, want
+        line = (f"[23 exact] {probe.name}: {probe.units} copies of {kb} KB on {sms} blocks, "
+                f"{probe.slots()} slots a block, {probe.bytes_in_flight_per_sm() // 1024} KB in "
+                f"flight per SM, checksums equal to the plain version; kernel "
+                f"{read_rows[probe.name]['event_ms']:.4f} ms (events over 5 calls)")
+        if variant != "nested":  # the ring at two blocks per SM, each with half the bytes
+            got2 = probe(src, blocks=2 * sms)
+            if not torch.equal(got2, probe.plain(src, 2 * sms)):
+                raise AssertionError(f"P2/P3 {probe.name} on {2 * sms} blocks disagrees with the plain "
+                                     "version")
+            read_rows[probe.name]["event_ms_2_per_sm"] = cuda_ms(lambda: probe(src, blocks=2 * sms),
+                                                                  reps=5)
+            line += (f", at 2 blocks per SM ({probe.slots(2)} slots each, equal) "
+                     f"{read_rows[probe.name]['event_ms_2_per_sm']:.4f} ms")
+        print(f"{line}; {'x.sum()' if variant == 'seq' else 'the planes sum'} "
+              f"{read_rows[probe.name]['library_ms']:.4f} ms, plain {plain_ms_k:.1f} ms, bound "
+              f"{b['bound_ms']:.4f} ms on {card}", flush=True)
+    del src, got, want, got2
     torch.cuda.empty_cache()
     counts, result = drive_probe("p2,p3", p23.launches)
     for r in result["reads"]["variants"]:
+        numbers = read_rows[r["name"]]
+        # A pass's device time: its bytes over the rate differenced over
+        # passes inside one launch.
+        numbers["ms"] = r["ms_per_pass"]
+        numbers["note"] = (f"ms: a pass, differenced; events over 5 calls {numbers['event_ms']:.4f} ms; "
+                           f"{numbers['slots']} slots, {numbers['bytes_in_flight_per_sm'] // 1024} KB "
+                           "in flight per SM")
+        if "event_ms_2_per_sm" in numbers:
+            numbers["note"] += f"; 2 blocks per SM {numbers['event_ms_2_per_sm']:.4f} ms (events)"
         print(f"[23 rate] {r['name']}: {r['bytes_per_s'] / 1e9:.1f} GB/s read, "
               f"{r['bytes_per_s'] / roofline.DATA_SHEET_BYTES_PER_S:.1%} of 3.35 TB/s, "
-              f"{r['bytes_per_s'] / copy_bw:.1%} of copy_'s {copy_bw / 1e9:.1f} GB/s on {card}", flush=True)
+              f"{r['bytes_per_s'] / copy_bw:.1%} of copy_'s {copy_bw / 1e9:.1f} GB/s; a pass "
+              f"{r['ms_per_pass']:.4f} ms (events over 5 calls {numbers['event_ms']:.4f}), "
+              f"{numbers['bound_ms'] / r['ms_per_pass']:.1%} of its bound on {card}", flush=True)
     for name, numbers in read_rows.items():
         record(f"bulk_read_{name}", numbers.pop("kind"), "bulk_read.cu", counts.get(name, 0), **numbers)
     lap(23)

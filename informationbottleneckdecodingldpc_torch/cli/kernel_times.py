@@ -18,16 +18,24 @@ default tiles):
   early exit off;
 - K6 (phase 17): one 256 MB pass, and ``copy_`` of the same buffers.
 
+With ``--reads`` it times the read probes P2/P3 instead (phase 23's source,
+seed 23): every variant and chunk size on one block per SM and, but nested,
+on two, each first held equal to its plain checksums, as a pass's device ms
+(its bytes over the rate differenced over passes in one launch) and as the
+mean of ``--reps`` one-pass calls.
+
 The package is imported from the checkout ``--tree`` (default: the one this
 file is in), put first on ``sys.path``, and only entry points that the
-package has had since its benchmark matrix are used, so two checkouts can be
-timed one after the other in one run on one card:
+package has had since its benchmark matrix (P2/P3: since its probes) are
+used, so two checkouts can be timed one after the other in one run on one
+card:
 
   python3 informationbottleneckdecodingldpc_torch/cli/kernel_times.py \\
-      [--tree build/parent] [--out PATH] [--reps 5]
+      [--tree build/parent] [--out PATH] [--reps 5] [--reads]
 
 Prints and writes one JSON object: ms per kernel and setting, the mean
-iterations of each decode and the card's name and power limit. Without a
+iterations of each decode (with ``--reads``: ms per pass and per call of
+each read variant) and the card's name and power limit. Without a
 CUDA device it raises.
 """
 
@@ -155,6 +163,32 @@ def run(reps: int) -> dict:
     return {"reps": reps, "ms": ms, "mean_iterations": iterations}
 
 
+def read_times(reps: int) -> dict:
+    """P2/P3's ms per pass and per one-pass call, by variant and blocks per
+    SM (``<name>_x1``, ``<name>_x2``)."""
+    from informationbottleneckdecodingldpc_torch.kernels import bulk_read as p23
+    from informationbottleneckdecodingldpc_torch.utils.peaks import differenced_rate
+    from informationbottleneckdecodingldpc_torch.utils.probes import read_source
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    src = read_source(dev, seed=23)
+    ms, event_ms = {}, {}
+    for variant, kb in dict.fromkeys(v for p in ("p2", "p3") for v in p23.PROBES[p]):
+        probe = p23.BulkRead(variant, kb * 1024 // p23.ROW_BYTES)
+        for per_sm in (1,) if variant == "nested" else (1, 2):
+            name, blocks = f"{probe.name}_x{per_sm}", per_sm * sms
+            if not torch.equal(probe(src, blocks=blocks), probe.plain(src, blocks)):
+                raise AssertionError(f"{name} disagrees with its plain checksums")
+            rate = differenced_rate(lambda n: probe(src, passes=n, blocks=blocks),
+                                    probe.bytes_per_pass, loops=1, min_seconds=0.1)
+            ms[name] = probe.bytes_per_pass / rate * 1e3
+            event_ms[name] = cuda_ms(lambda: probe(src, blocks=blocks), reps)
+            print(f"{name}: {ms[name]:.4f} ms a pass (differenced), {event_ms[name]:.4f} ms a "
+                  "call (events)", flush=True)
+    return {"reps": reps, "read_ms_per_pass": ms, "read_event_ms": event_ms}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -162,12 +196,13 @@ def main(argv=None) -> dict:
     p.add_argument("--tree", default=str(TREE))
     p.add_argument("--out", default="")
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--reads", action="store_true", help="time the read probes P2/P3 only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times runs on a CUDA device only")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
-    out = {"tree": str(tree), **run(args.reps), "card": nvidia_smi()}
+    out = {"tree": str(tree), **(read_times if args.reads else run)(args.reps), "card": nvidia_smi()}
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

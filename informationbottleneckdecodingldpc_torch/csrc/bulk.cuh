@@ -8,7 +8,10 @@
 // mbarrier in shared memory: the issuing thread first adds the bytes it
 // expects with arrive_expect_tx (which also counts its arrival), and the
 // barrier's phase flips once every expected byte has landed. A barrier
-// counts at most 2^20 - 1 pending transaction bytes. A shared -> global copy
+// counts at most 2^20 - 1 pending transaction bytes. A ring of slots pairs
+// each slot's transaction barrier ("full") with one its readers arrive on
+// ("empty", arrive()), which the issuing thread waits for before it loads
+// the slot again. A shared -> global copy
 // completes in a bulk group: commit() closes the group of copies issued
 // since the last one, and wait_all() returns once every committed group has
 // been written. Generic stores to shared memory that a bulk copy will read
@@ -43,7 +46,13 @@ __device__ __forceinline__ void arrive_expect_tx(uint64_t* bar, uint32_t bytes) 
                : "memory");
 }
 
-// Spin until the phase of parity `parity` has completed.
+// Arrive once, without transaction bytes.
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A barrier starts in
+// phase 0, so a wait on parity 1 passes at once (a slot that starts empty).
 __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {

@@ -15,13 +15,18 @@ arithmetic:
 - ``nested``: stage c reads chunk c of the 7 planes into slots
   ``7 (c & 1) + j`` (``read_bw_probe2.py:48-74``).
 
-The slots are those of one sequence, as the TPU's single core ran it. On the
-card (``csrc/bulk_read.cu``) block i of the grid takes the units (stages for
-``nested``) u = i (mod grid) through its own ring and returns the wrapping
-int32 sum of every word it staged. :class:`BulkRead` launches the kernel
-for a CUDA source and counts the launch in :data:`launches`; for a CPU
-source it runs :func:`read_checksums_plain`, the same per-block sums by
-indexing. There is no fallback from one to the other.
+The slots are those of one sequence, as the TPU's single core ran it
+(:data:`RING`). On the card (``csrc/bulk_read.cu``) block i of the grid
+takes the units (stages for ``nested``) u = i (mod grid) through its own
+ring and returns the wrapping int32 sum of every word it staged. The card's
+ring is sized by bytes, not by the TPU's depth: :func:`ring_slots` slots of
+a chunk, :data:`RING_BYTES` in flight per SM split between its blocks
+(``nested`` keeps its 2 x 7 slots), with the table variant's share of the
+table staged in shared memory after them (:func:`ring_shared_bytes`).
+:class:`BulkRead` launches the kernel for a CUDA source and counts the
+launch in :data:`launches`; for a CPU source it runs
+:func:`read_checksums_plain`, the same per-block sums by indexing. There is
+no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -36,7 +41,15 @@ import torch
 ROW_BYTES = 512  # the TPU's [1, 128] int32 row, the schedules' unit
 SOURCE_ROWS = 1 << 19  # 256 MB, five times the 50 MB L2
 STREAMS = 7  # interleaved streams (DVB-S2's check-node planes)
-RING = 4  # slots of the ring variants (kRing in csrc/bulk_read.cu)
+RING = 4  # slots of the TPU's ring (read_schedule's slot column)
+RING_BYTES = 64 * 1024  # the card's ring: bytes in flight per SM (kRingBytes)
+MIN_SLOTS = 4  # slots per SM at least (kMinSlots)
+MAX_SLOTS = 64  # slots of a block's ring at most (kMaxSlots)
+# Shared memory a block may hold (static and dynamic), and the ring
+# kernel's static part: a full and an empty barrier per slot, block_sum's
+# 32 words.
+BLOCK_SHARED = 232448
+RING_STATIC_SHARED = 2 * MAX_SLOTS * 8 + 32 * 4
 VARIANTS = ("seq", "strided", "table", "nested")
 # The probes' variants, (variant, chunk KB): P2 streams 1 and 7 at three
 # chunk sizes, P3 seq / table / nested at two (nested's 2 x 7 slots of 16 KB
@@ -73,6 +86,26 @@ def read_schedule(variant: str, rows: int, chunk_rows: int, streams: int = STREA
     return np.stack([first, slot], 1)
 
 
+def ring_slots(chunk_rows: int, blocks_per_sm: int = 1) -> int:
+    """Slots of a block's ring on the card (``ring_slots`` in
+    ``csrc/bulk_read.cu``): :data:`RING_BYTES` per SM in chunks, at least
+    :data:`MIN_SLOTS`, split between the SM's blocks; at least 1 and at most
+    :data:`MAX_SLOTS` a block."""
+    per_sm = max(MIN_SLOTS, RING_BYTES // (chunk_rows * ROW_BYTES))
+    return max(1, min(MAX_SLOTS, per_sm // blocks_per_sm))
+
+
+def ring_shared_bytes(variant: str, chunk_rows: int, units: int, blocks: int, sms: int) -> int:
+    """Dynamic shared memory of a block of a ring variant on ``blocks``
+    blocks over ``sms`` SMs: its slots and, for ``table``, the largest
+    block's share of the table, rounded up to 16 bytes."""
+    ring = ring_slots(chunk_rows, -(-blocks // sms)) * chunk_rows * ROW_BYTES
+    if variant != "table":
+        return ring
+    share = -(-units // blocks)  # block 0's units, the most of any block
+    return ring + -(-4 * share // 16) * 16
+
+
 def read_checksums_plain(
     src: torch.Tensor, schedule: np.ndarray, chunk_rows: int, blocks: int, passes: int = 1,
     per_step: int = 1,
@@ -99,6 +132,14 @@ class BulkRead:
         self.per_step = STREAMS if variant == "nested" else 1
         self.bytes_per_pass = self.units * chunk_rows * ROW_BYTES
         self._tables: dict = {}
+
+    def slots(self, blocks_per_sm: int = 1) -> int:
+        """Slots of a block on the card: the ring's, or nested's 2 x 7."""
+        return 2 * STREAMS if self.variant == "nested" else ring_slots(self.chunk_rows, blocks_per_sm)
+
+    def bytes_in_flight_per_sm(self, blocks_per_sm: int = 1) -> int:
+        """What a full ring keeps in flight on one SM."""
+        return blocks_per_sm * self.slots(blocks_per_sm) * self.chunk_rows * ROW_BYTES
 
     @property
     def name(self) -> str:
@@ -148,8 +189,11 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = CLibrary("bulk_read", {
         "bulk_read": [i, p, p, p, ctypes.c_longlong, i, i, i, i, i, p],
-        "bulk_read_ring": [],
+        "bulk_read_slots": [i, i],
     })
-    if lib.value("bulk_read_ring") != RING:
-        raise RuntimeError("csrc/bulk_read.cu and kernels/bulk_read.py disagree on the ring depth")
+    for chunk_rows in sorted({kb * 1024 // ROW_BYTES for p in PROBES.values() for _, kb in p}):
+        for per_sm in (1, 2):
+            if lib.value("bulk_read_slots", chunk_rows, per_sm) != ring_slots(chunk_rows, per_sm):
+                raise RuntimeError("csrc/bulk_read.cu and kernels/bulk_read.py disagree on the "
+                                   f"ring's slots at {chunk_rows} rows, {per_sm} blocks per SM")
     return lib

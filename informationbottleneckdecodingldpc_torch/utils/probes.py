@@ -6,7 +6,8 @@ Port of the measurement halves of ``scripts/mxu_col_probe.py`` (P1),
 ``scripts/stage_replay.py`` (P6). Every rate is differenced between n and 2n
 loops, passes, waves, iterations or bodies timed with CUDA events (``utils/peaks.py``
 ``differenced_rate``), n grown until one launch takes at least
-:data:`MIN_SECONDS`, which cancels the launch and set-up costs:
+:data:`MIN_SECONDS` (P2/P3: :data:`READ_MIN_SECONDS`), which cancels the
+launch and set-up costs:
 
 - P1 (:func:`measure_columns`): element-steps/s of the column-build chain on
   CUDA cores and on tensor cores at (T1, W) = (16, 2) and (32, 5), over the
@@ -14,7 +15,9 @@ loops, passes, waves, iterations or bodies timed with CUDA events (``utils/peaks
   the data sheet's lookup rate, and the padded one-hot ``mma`` flops per
   step at its f16 tensor-core rate;
 - P2/P3 (:func:`measure_reads`): bytes/s read from a 256 MB source per
-  variant and chunk size, beside ``x.sum()`` over the same source;
+  variant and chunk size, and the device ms of one pass they give, beside
+  ``x.sum()`` over the same source and, for the 7-plane variants, one sum
+  over the 224 MB of planes they read (:func:`read_library`);
 - P4 (:func:`measure_copies`): waves/s of each copy variant (the card-wide
   wave of 512 copies dealt over one block per SM; that wave on one block,
   one SM's issue cost; a wave on each of 132 blocks), as microseconds per
@@ -53,6 +56,7 @@ from .peaks import _cuda, differenced_rate
 from .roofline import DATA_SHEET_BYTES_PER_S, DATA_SHEET_OPS_PER_S
 
 MIN_SECONDS = 0.1  # one launch at the final count takes at least this
+READ_MIN_SECONDS = 0.05  # a read pass or sum takes 0.07-0.5 ms: a hundred or more a launch
 MAX_SHARE = 1.05  # of the data sheet's bytes/s, above which a byte count is wrong
 L2_BYTES = 50 * 2**20  # the H100's L2: a wave whose copies fit it repeats at L2 rates
 P4_ROWS = (1, 32, 256)  # 512 B, 16 KB, 128 KB: the TPU probe's 1, 32, 256 rows
@@ -112,24 +116,51 @@ def read_label(variant: str) -> str:
     return {"seq": "streams=1", "strided": f"streams={p23.STREAMS}"}.get(variant, variant)
 
 
+def read_library(probe: p23.BulkRead, src: torch.Tensor):
+    """For a 7-plane variant (strided, table, nested), one PyTorch call that
+    sums the words it reads, as a function of no arguments, and their bytes:
+    the first ``chunks x L`` rows of each of the 7 planes (all of [0, 7
+    rows/8) at 4 and 16 KB). Its wrapping total is that of the per-block
+    checksums of one pass."""
+    plane = probe.rows // 8
+    rows = probe.units // p23.STREAMS * probe.chunk_rows
+    planes = src[:p23.STREAMS * plane].view(p23.STREAMS, plane, -1)[:, :rows]
+    return (lambda: planes.sum()), probe.bytes_per_pass
+
+
 def measure_reads(probes: list[str], device: torch.device | str = "cuda") -> dict:
     """P2/P3: the read rate of every (variant, chunk) of ``probes`` ('p2',
-    'p3'; shared variants run once), and ``x.sum()``'s over the source."""
+    'p3'; shared variants run once), differenced over passes in one launch,
+    and the ms of a pass it gives; ``x.sum()``'s rate over the source, and
+    for the 7-plane variants their planes' sum's (:func:`read_library`)."""
     device = _cuda(device)
     src = read_source(device)
     variants = list(dict.fromkeys(v for p in probes for v in p23.PROBES[p]))
-    out = {"variants": []}
+    out, library = {"variants": []}, {}  # variants that read the same bytes share a library rate
     for variant, kb in variants:
         probe = p23.BulkRead(variant, kb * 1024 // p23.ROW_BYTES)
         rate = differenced_rate(lambda n: probe(src, passes=n), probe.bytes_per_pass, loops=1,
-                                min_seconds=MIN_SECONDS)
+                                min_seconds=READ_MIN_SECONDS)
+        flight = probe.bytes_in_flight_per_sm()
         print(f"{read_label(variant)} chunk={kb} KB: {rate / 1e9:.1f} GB/s read "
-              f"({rate / DATA_SHEET_BYTES_PER_S:.1%} of the data sheet's 3.35 TB/s)", flush=True)
+              f"({rate / DATA_SHEET_BYTES_PER_S:.1%} of the data sheet's 3.35 TB/s), "
+              f"{probe.bytes_per_pass / rate * 1e3:.4f} ms a pass; {probe.slots()} slots, "
+              f"{flight // 1024} KB in flight per SM", flush=True)
         _bytes_rate_ok(rate, probe.name)
-        out["variants"].append({"name": probe.name, "variant": variant, "chunk_kb": kb,
-                                "bytes_per_pass": probe.bytes_per_pass, "bytes_per_s": rate})
+        rec = {"name": probe.name, "variant": variant, "chunk_kb": kb, "slots": probe.slots(),
+               "bytes_in_flight_per_sm": flight, "bytes_per_pass": probe.bytes_per_pass,
+               "bytes_per_s": rate, "ms_per_pass": probe.bytes_per_pass / rate * 1e3}
+        if variant != "seq":
+            call, moved = read_library(probe, src)
+            if moved not in library:
+                library[moved] = differenced_rate(lambda n: [call() for _ in range(n)], moved,
+                                                  loops=1, min_seconds=READ_MIN_SECONDS)
+                print(f"the sum of the 7 planes' {moved / 2**20:.1f} MB: "
+                      f"{library[moved] / 1e9:.1f} GB/s read", flush=True)
+            rec["library_bytes_per_s"] = library[moved]
+        out["variants"].append(rec)
     rate = differenced_rate(lambda n: [src.sum() for _ in range(n)], src.numel() * 4, loops=1,
-                            min_seconds=MIN_SECONDS)
+                            min_seconds=READ_MIN_SECONDS)
     print(f"x.sum() over the 256 MB source: {rate / 1e9:.1f} GB/s read", flush=True)
     _bytes_rate_ok(rate, "x.sum()")
     out["sum_bytes_per_s"] = rate

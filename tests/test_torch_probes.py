@@ -11,7 +11,10 @@ shrunk through their module globals:
 - P2/P3: with a source of distinct rows (the module's ``jnp.zeros`` swapped
   for an ``arange``), the rows the script's slot 0 holds last are the rows
   ``read_schedule`` puts last into slot 0, and its byte count is the
-  schedule's;
+  schedule's; the card's ring (sized by bytes, not the TPU's 4 slots) fits
+  a block's shared memory with the table share it stages, which lists the
+  rows the block reads, and the library call sums the words a variant
+  reads;
 - P4: the rows the stage direction leaves in slot 0 are those the port's
   tables send there last, and ``build_tiny_loops``' loop count is the port's
   waits per wave with the TPU's one issuer; the card-wide deal of a wave
@@ -165,6 +168,75 @@ def test_read_checksums_plain_match_a_numpy_loop(variant, chunk_rows):
     total = probe(torch.as_tensor(src), passes=passes).numpy()
     wrapped = np.uint32(got.numpy().astype(np.int64).sum() & 0xFFFFFFFF)
     assert total.shape == (1,) and wrapped == total.view(np.uint32)[0]
+
+
+READ_VARIANTS = list(dict.fromkeys(v for p in p23.PROBES.values() for v in p))
+H100_SMS = 132
+SM_SHARED = 233472  # an SM's shared memory for all its blocks
+BLOCK_RESERVED = 1024  # what the card keeps of it per resident block
+
+
+@pytest.mark.parametrize("variant,kb", READ_VARIANTS)
+def test_card_ring_fits_shared_memory_and_keeps_bytes_in_flight(variant, kb):
+    probe = p23.BulkRead(variant, kb * 1024 // p23.ROW_BYTES)
+    chunk = probe.chunk_rows * p23.ROW_BYTES
+    # At least nested's 4 KB figure in flight per SM: 2 x 7 slots of 4 KB.
+    assert probe.bytes_in_flight_per_sm() >= 56 * 1024
+    if variant == "nested":
+        assert probe.slots() == 2 * p23.STREAMS and 2 * p23.STREAMS * chunk <= p23.BLOCK_SHARED
+        return
+    for per_sm in (1, 2):
+        assert probe.slots(per_sm) == p23.ring_slots(probe.chunk_rows, per_sm)
+        assert probe.bytes_in_flight_per_sm(per_sm) == per_sm * probe.slots(per_sm) * chunk
+        assert probe.bytes_in_flight_per_sm(per_sm) == probe.bytes_in_flight_per_sm()  # per SM
+        shared = p23.RING_STATIC_SHARED + p23.ring_shared_bytes(
+            variant, probe.chunk_rows, probe.units, per_sm * H100_SMS, H100_SMS)
+        assert shared <= p23.BLOCK_SHARED
+        assert per_sm * (shared + BLOCK_RESERVED) <= SM_SHARED  # both blocks resident
+    # Bytes, not the TPU's 4 slots: 16 of 4 KB, 4 of 16 KB and 4 of 48 KB.
+    assert probe.slots() == {4: 16, 16: 4, 48: 4}[kb]
+
+
+def test_ring_slots_follow_the_byte_budget():
+    assert [p23.ring_slots(rows) for rows in (8, 32, 96)] == [16, 4, 4]
+    assert [p23.ring_slots(rows, 2) for rows in (8, 32, 96)] == [8, 2, 2]
+    assert p23.ring_slots(1) == p23.MAX_SLOTS  # 128 slots of 512 B would not fit the barriers
+    assert p23.ring_slots(384) == p23.MIN_SLOTS == 4  # 192 KB chunks: 4 slots an SM (refused: too big)
+    assert p23.ring_slots(384, 8) == 1  # a block keeps one slot at least
+    assert p23.RING == 4  # the TPU's ring, read_schedule's slot column, is kept apart
+
+
+@pytest.mark.parametrize("blocks", [1, 3, 132])
+@pytest.mark.parametrize("chunk_rows", [16, 24])
+def test_table_share_lists_the_rows_a_block_reads(blocks, chunk_rows):
+    rng = np.random.default_rng(12)
+    src = rng.integers(-2**31, 2**31, (READ_ROWS, 128)).astype(np.int32)
+    probe = p23.BulkRead("table", chunk_rows, rows=READ_ROWS)
+    sums = probe.plain(torch.as_tensor(src), blocks).numpy()
+    for i in range(blocks):
+        mine = [u for u in range(probe.units) if u % blocks == i]
+        share = probe.schedule[i::blocks, 0]  # table[i], table[i + grid], ...: what block i stages
+        assert np.array_equal(share, probe.schedule[mine, 0])
+        total = sum(int(src[r:r + chunk_rows].astype(np.int64).sum()) for r in share)
+        assert np.uint32(total & 0xFFFFFFFF) == sums[i:i + 1].view(np.uint32)[0]
+    # The largest share is block 0's; its 4-byte entries sit after the slots.
+    shared = p23.ring_shared_bytes("table", chunk_rows, probe.units, blocks, blocks)
+    ring = p23.ring_slots(chunk_rows) * chunk_rows * p23.ROW_BYTES
+    assert shared - ring >= 4 * len(probe.schedule[::blocks]) > shared - ring - 16
+
+
+@pytest.mark.parametrize("variant", ["strided", "table", "nested"])
+@pytest.mark.parametrize("chunk_rows", [16, 24])
+def test_read_library_sums_the_words_the_variant_reads(variant, chunk_rows):
+    rng = np.random.default_rng(13)
+    src = torch.as_tensor(rng.integers(-2**31, 2**31, (READ_ROWS, 128)).astype(np.int32))
+    probe = p23.BulkRead(variant, chunk_rows, rows=READ_ROWS)
+    call, moved = probes.read_library(probe, src)
+    assert moved == probe.bytes_per_pass
+    total = call()
+    assert total.dtype == torch.int64 and total.numel() == 1
+    want = probe.plain(src, 5).long().sum()
+    assert p23.wrap_int32(total) == p23.wrap_int32(want)
 
 
 def test_read_variants_and_sizes():
