@@ -122,9 +122,15 @@ the port's decoder construction.
     and P4 (``csrc/bulk_copies.cu``), built beside K1-K6: registers, shared
     memory and spills of each kernel;
 22. P1, CUDA cores and tensor cores at |T1| 16 and 32, equal (``==``) to the
-    plain chain at 16 loops over the elements the rate measurement launches,
-    each timed; then the probe entry point's P1 (its rates against their
-    data-sheet bounds), every variant launched;
+    plain chain at 16 loops over the elements that fill the card (blocks per
+    SM printed), each timed by events beside ``index_select``'s build of the
+    same columns (no extract), its loop's SASS per element-step by class
+    beside the bound's extract and update (``roofline.COLUMN_STEP_OPS``,
+    which no class of the loop may fall under);
+    then the probe entry point's P1, every variant launched: its rate
+    differenced over steps in one launch, the device time of a 16-step
+    launch it gives (the time the kernels' line records) and its share of
+    the per-pipe bound (``utils/probes.py`` ``column_bound``);
 23. P2/P3, every read variant and chunk size (seq, 7 strided streams at 4,
     16 and 48 KB; the table and nested variants at 4 and 16 KB) over the 256
     MB source on one block per SM, with its slots and bytes in flight per
@@ -382,16 +388,19 @@ def sass_functions(lib_path: str) -> dict[str, list[tuple[int, str, int | None, 
     return out
 
 
-def loop_op_counts(lib_path: str, kernel: str) -> dict[str, int]:
+def loop_op_counts(lib_path: str, kernel: str, marker: str | None = None) -> dict[str, int]:
     """Instructions per opcode that one trip of the innermost loop of a
     kernel runs on its common path, from ``cuobjdump -sass`` of a built
     library: the first function whose mangled name holds ``kernel``, the
-    instructions from the target of its shortest backward branch to that
-    branch, less those a predicated forward branch jumps over (the libm
-    calls' special-value paths, which finite inputs skip)."""
+    instructions from the target of its shortest backward branch (of those
+    whose loop holds the opcode ``marker``, if given) to that branch, less
+    those a predicated forward branch jumps over (the libm calls'
+    special-value paths, which finite inputs skip)."""
     ins = next(v for k, v in sass_functions(lib_path).items() if kernel in k)
-    end, start = min(((a, t) for a, op, t, _ in ins if op == "BRA" and t is not None and t < a),
-                     key=lambda at: at[0] - at[1])
+    loops = [(a, t) for a, op, t, _ in ins if op == "BRA" and t is not None and t < a]
+    if marker:
+        loops = [(a, t) for a, t in loops if any(op == marker and t <= b <= a for b, op, _, _ in ins)]
+    end, start = min(loops, key=lambda at: at[0] - at[1])
     loop = [i for i in ins if start <= i[0] <= end]
     skipped = [(a, t) for a, op, t, pred in loop if op == "BRA" and pred and t is not None and t > a]
     counts: dict[str, int] = {}
@@ -421,31 +430,6 @@ def common_path_counts(ins: list[tuple[int, str, int | None, bool]]) -> dict[str
         if not any(s < a < t for s, t in skipped):
             counts[op] = counts.get(op, 0) + 1
     return counts
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """Device milliseconds per call of ``fn`` over ``reps`` calls after a
-    warm-up call, without the host's time between launches: the calls are
-    queued behind a sleep kernel that outlasts their queueing, so the CUDA
-    events around them time the card's back-to-back run (the sleep doubles
-    until it does)."""
-    fn()
-    torch.cuda.synchronize()
-    cycles = 20_000_000
-    while True:
-        slept, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        t0 = time.perf_counter()
-        slept.record()
-        torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        if queued_ms < slept.elapsed_time(start):
-            return start.elapsed_time(stop) / reps
-        cycles *= 2
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -577,6 +561,82 @@ def timed_plain(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
+def column_phase(dev, card: str, builds: dict, record) -> None:
+    """Phase 22: P1 on CUDA cores and tensor cores at both T1, each row held
+    ``==`` its plain version at the elements that fill the card, its loop's
+    SASS per element-step by class, then the probe entry point with the
+    launch counts reset: each row's device ms of a 16-step launch beside its
+    per-pipe bound, its events time and index_select's build of the same
+    columns; the records through ``record``."""
+    from informationbottleneckdecodingldpc_torch.kernels import lut_columns as p1
+    from informationbottleneckdecodingldpc_torch.utils import probes, roofline
+    from informationbottleneckdecodingldpc_torch.utils.peaks import device_ms
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p1_rows = {}
+    for t1 in p1.CONFIGS:
+        for variant in p1.VARIANTS:
+            name = p1.variant_name(variant, t1)
+            elements = p1.elements_to_fill(variant, t1, dev)
+            per_sm = elements // (sms * p1.block_elements(variant))
+            packed, b0 = (torch.as_tensor(a, device=dev) for a in p1.probe_inputs(t1, elements, seed=17))
+            run = lambda: p1.columns_chain(variant, packed, b0, CHECK_LOOPS)
+            got = run()
+            want, plain_ms_k = timed_plain(lambda: p1.columns_chain_plain(packed, b0, CHECK_LOOPS))
+            err = int((got.long() - want.long()).abs().max())
+            if not torch.equal(got, want):
+                raise AssertionError(f"P1 {variant} T1={t1} disagrees with its plain version ({err})")
+            b = roofline.bound(2 * 4 * elements + packed.numel() * 4,
+                               probes.column_ops(variant, t1, elements * CHECK_LOOPS))
+            # The library call: index_select's build of one step's columns,
+            # no extract, times the 16 steps.
+            library_ms = device_ms(probes.column_library(packed, b0.long() & (t1 - 1))) * CHECK_LOOPS
+            p1_rows[name] = dict(kind=variant, max_abs_err=err, event_ms=cuda_ms(run, reps=5),
+                                 plain_ms=plain_ms_k, library_ms=library_ms, bound_ms=b["bound_ms"],
+                                 bound_by=b["bound_by"], busiest=b["busiest"], elements=elements)
+            # The kernel's loop as compiled, per element-step: lookups per step
+            # (CUDA cores) or mma per tile pair (tensor cores) give the steps
+            # a trip of the loop runs. The bound's integer work must be no
+            # more than the loop runs in each class.
+            marker = "LDS" if variant == "cuda_cores" else "IMMA"
+            ops = loop_op_counts(builds["lut_columns"]["path"], p1.kernel_name(variant, t1), marker)
+            steps = (ops["LDS"] / p1.CUDA_LOADS_PER_STEP[t1] if variant == "cuda_cores"
+                     else ops["IMMA"] / (2 * p1.N_TILES[t1]))
+            sass = roofline.sass_counts({k: n / steps for k, n in ops.items()}, roofline.INTEGER_PIPE_OPCODES)
+            over = {k: n for k, n in roofline.COLUMN_STEP_OPS[t1].items() if sass.get(k, 0) < n}
+            if over:
+                raise AssertionError(f"P1 {name}: the bound counts more {over} a step than its loop runs "
+                                     f"({sass})")
+            p1_rows[name]["sass"] = sass
+            print(f"[22 exact] P1 {name}: {elements} elements ({per_sm} blocks of "
+                  f"{p1.block_elements(variant)} per SM) x {CHECK_LOOPS} steps equal to the plain "
+                  f"version; events over 5 launches {p1_rows[name]['event_ms']:.4f} ms, plain "
+                  f"{plain_ms_k:.1f} ms, index_select (the build, 16 steps) {library_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['busiest']}) on {card}", flush=True)
+            print(f"[22 sass] P1 {name}: SASS per element-step "
+                  f"{json.dumps({k: round(v, 3) for k, v in sass.items()})} ({steps:g} a trip); the "
+                  f"bound's extract and update {json.dumps(roofline.COLUMN_STEP_OPS[t1])}", flush=True)
+    counts, result = drive_probe("p1", p1.launches)
+    for r in result["p1"]:
+        numbers = p1_rows[r["name"]]
+        # A 16-step launch's device time: its element-steps over the rate
+        # differenced over steps inside one launch.
+        numbers["ms"] = r["ms_per_16_steps"]
+        sass = {k: round(v, 3) for k, v in numbers.pop("sass").items()}
+        numbers["note"] = (f"ms: a {CHECK_LOOPS}-step launch of {numbers.pop('elements')} elements, "
+                           f"differenced; events over 5 launches {numbers.pop('event_ms'):.4f} ms; "
+                           f"bound by {numbers.pop('busiest')}; library_ms: index_select, the build "
+                           f"alone, no extract; SASS per element-step {json.dumps(sass)}")
+        print(f"[22 rate] P1 {r['name']}: {r['element_steps_per_s'] / 1e9:.2f} G element-steps/s, "
+              f"a 16-step launch {r['ms_per_16_steps']:.5f} ms, {numbers['bound_ms'] / numbers['ms']:.1%} "
+              f"of its bound {numbers['bound_ms']:.5f} ms ({r['bound_class']}); index_select "
+              f"{r['library_element_steps_per_s'] / 1e9:.2f} G column builds/s on {card}", flush=True)
+    for name, numbers in p1_rows.items():
+        record(f"lut_columns_{name}", numbers.pop("kind"), "lut_columns.cu", counts.get(name, 0),
+               **numbers)
+    print(f"[22 launches] {json.dumps(counts)}", flush=True)
+
+
 def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict]:
     """Phases 21-24: the probes P1-P4 built, held against their plain
     versions, timed, and run through their entry point. Returns their
@@ -585,9 +645,10 @@ def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict
     from informationbottleneckdecodingldpc_torch.kernels import bulk_read as p23
     from informationbottleneckdecodingldpc_torch.kernels import lut_columns as p1
     from informationbottleneckdecodingldpc_torch.utils import probes, roofline
+    from informationbottleneckdecodingldpc_torch.utils.peaks import device_ms
 
     # -- 21: the probes' builds (started in phase 2) ------------------------------
-    names = {f"{v}_kernelILi{t}E": f"{v} T{t}" for v in ("cuda_cores", "tensor_cores") for t in (16, 32)}
+    names = {p1.kernel_name(v, t): f"{v} T{t}" for v in p1.VARIANTS for t in p1.CONFIGS}
     names.update({"ring_kernelILi0E": "seq", "ring_kernelILi1E": "strided", "ring_kernelILi2E": "table",
                   "nested": "nested", "scatter": "scatter", "stage": "stage"})
     for name, b in builds.items():
@@ -605,34 +666,7 @@ def probe_phases(dev, card: str, lap, builds: dict, copy_bw: float) -> list[dict
                         "launches": launches, **numbers})
 
     # -- 22: P1, column builds on CUDA cores and tensor cores --------------------------
-    p1_rows = {}
-    for t1 in p1.CONFIGS:
-        w = p1.CONFIGS[t1][1]
-        for variant in p1.VARIANTS:
-            elements = p1.elements_to_fill(variant, t1, dev)
-            packed, b0 = (torch.as_tensor(a, device=dev) for a in p1.probe_inputs(t1, elements, seed=17))
-            run = lambda: p1.columns_chain(variant, packed, b0, CHECK_LOOPS)
-            got = run()
-            want, plain_ms_k = timed_plain(lambda: p1.columns_chain_plain(packed, b0, CHECK_LOOPS))
-            err = int((got.long() - want.long()).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(f"P1 {variant} T1={t1} disagrees with its plain version ({err})")
-            steps = elements * CHECK_LOOPS
-            ops = ({"lookup": steps * w} if variant == "cuda_cores"
-                   else {"tensor_f16": steps * p1.mma_flops_per_step(t1)})
-            b = roofline.bound(2 * 4 * elements + packed.numel() * 4, ops)
-            name = p1.variant_name(variant, t1)
-            p1_rows[name] = dict(kind=variant, max_abs_err=err, ms=cuda_ms(run, reps=5),
-                                 plain_ms=plain_ms_k, library_ms=None, bound_ms=b["bound_ms"],
-                                 bound_by=b["bound_by"])
-            print(f"[22 exact] P1 {name}: {elements} elements x {CHECK_LOOPS} steps equal to the "
-                  f"plain version; kernel {p1_rows[name]['ms']:.4f} ms, plain {plain_ms_k:.1f} ms, "
-                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}) on {card}", flush=True)
-    counts, _ = drive_probe("p1", p1.launches)
-    for name, numbers in p1_rows.items():
-        record(f"lut_columns_{name}", numbers.pop("kind"), "lut_columns.cu", counts.get(name, 0),
-               **numbers)
-    print(f"[22 launches] {json.dumps(counts)}", flush=True)
+    column_phase(dev, card, builds, record)
     lap(22)
 
     # -- 23: P2/P3, reads staged by bulk copies ------------------------------------------
@@ -778,6 +812,7 @@ def channel_input_phase(dev, card: str, box_muller: dict[str, float], main_count
     from informationbottleneckdecodingldpc_torch.kernels import philox_planes
     from informationbottleneckdecodingldpc_torch.sim import rng
     from informationbottleneckdecodingldpc_torch.utils import roofline
+    from informationbottleneckdecodingldpc_torch.utils.peaks import device_ms
 
     key = rng.key_words(0x0123456789ABCDEF)
 
@@ -974,6 +1009,7 @@ def mary_phases(dev, card: str, lap, layout, encoder, dv_layout, dv_encoder) -> 
     from informationbottleneckdecodingldpc_torch.sim.engine import step_seed
     from informationbottleneckdecodingldpc_torch.sim.results import load_partial, save_results
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import measure_sim_throughput
+    from informationbottleneckdecodingldpc_torch.utils.peaks import device_ms
 
     cpu = torch.device("cpu")
     f32 = np.float32

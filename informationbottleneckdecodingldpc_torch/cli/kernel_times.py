@@ -22,20 +22,26 @@ With ``--reads`` it times the read probes P2/P3 instead (phase 23's source,
 seed 23): every variant and chunk size on one block per SM and, but nested,
 on two, each first held equal to its plain checksums, as a pass's device ms
 (its bytes over the rate differenced over passes in one launch) and as the
-mean of ``--reps`` one-pass calls.
+mean of ``--reps`` one-pass calls. With ``--columns`` it times P1's four
+rows (CUDA cores and tensor cores at T1 16 and 32, phase 22's inputs, seed
+17, over the elements that fill the card), each first held equal to its
+plain version over 16 steps, as the device ms of a 16-step launch (its
+elements times 16 over the element-step rate differenced over steps in one
+launch) and as the mean of ``--reps`` 16-step launches.
 
 The package is imported from the checkout ``--tree`` (default: the one this
 file is in), put first on ``sys.path``, and only entry points that the
-package has had since its benchmark matrix (P2/P3: since its probes) are
+package has had since its benchmark matrix (P1-P3: since its probes) are
 used, so two checkouts can be timed one after the other in one run on one
 card:
 
   python3 informationbottleneckdecodingldpc_torch/cli/kernel_times.py \\
-      [--tree build/parent] [--out PATH] [--reps 5] [--reads]
+      [--tree build/parent] [--out PATH] [--reps 5] [--reads | --columns]
 
 Prints and writes one JSON object: ms per kernel and setting, the mean
 iterations of each decode (with ``--reads``: ms per pass and per call of
-each read variant) and the card's name and power limit. Without a
+each read variant; with ``--columns``: ms per 16-step launch of each P1
+row) and the card's name and power limit. Without a
 CUDA device it raises.
 """
 
@@ -189,6 +195,33 @@ def read_times(reps: int) -> dict:
     return {"reps": reps, "read_ms_per_pass": ms, "read_event_ms": event_ms}
 
 
+def column_times(reps: int) -> dict:
+    """P1's ms per 16-step launch, differenced and by events, by row
+    (``<variant>_T<t1>``), with the elements of each launch."""
+    from informationbottleneckdecodingldpc_torch.kernels import lut_columns as p1
+    from informationbottleneckdecodingldpc_torch.utils.peaks import differenced_rate
+
+    dev, steps = torch.device("cuda"), 16
+    ms, event_ms, elements_of = {}, {}, {}
+    for t1 in p1.CONFIGS:
+        for variant in p1.VARIANTS:
+            name = p1.variant_name(variant, t1)
+            elements = p1.elements_to_fill(variant, t1, dev)
+            packed, b0 = (torch.as_tensor(a, device=dev) for a in p1.probe_inputs(t1, elements, seed=17))
+            run = lambda n: p1.columns_chain(variant, packed, b0, n)  # noqa: E731
+            if not torch.equal(run(steps), p1.columns_chain_plain(packed, b0, steps)):
+                raise AssertionError(f"{name} disagrees with its plain version")
+            rate = differenced_rate(run, elements, loops=steps, min_seconds=0.1)
+            ms[name] = elements * steps / rate * 1e3
+            event_ms[name] = cuda_ms(lambda: run(steps), reps)
+            elements_of[name] = elements
+            print(f"{name}: {elements} elements, {ms[name]:.5f} ms a 16-step launch (differenced; "
+                  f"{rate / 1e9:.2f} G element-steps/s), {event_ms[name]:.5f} ms a launch (events)",
+                  flush=True)
+    return {"reps": reps, "column_ms_per_16_steps": ms, "column_event_ms": event_ms,
+            "column_elements": elements_of}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter
@@ -196,13 +229,16 @@ def main(argv=None) -> dict:
     p.add_argument("--tree", default=str(TREE))
     p.add_argument("--out", default="")
     p.add_argument("--reps", type=int, default=5)
-    p.add_argument("--reads", action="store_true", help="time the read probes P2/P3 only")
+    only = p.add_mutually_exclusive_group()
+    only.add_argument("--reads", action="store_true", help="time the read probes P2/P3 only")
+    only.add_argument("--columns", action="store_true", help="time the column probe P1 only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("kernel_times runs on a CUDA device only")
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
-    out = {"tree": str(tree), **(read_times if args.reads else run)(args.reps), "card": nvidia_smi()}
+    times = read_times if args.reads else column_times if args.columns else run
+    out = {"tree": str(tree), **times(args.reps), "card": nvidia_smi()}
     print(json.dumps(out), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

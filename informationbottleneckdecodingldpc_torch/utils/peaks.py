@@ -26,6 +26,7 @@ function here raises without a CUDA device.
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
@@ -40,6 +41,31 @@ def _cuda(device: torch.device | str) -> torch.device:
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError("peak rates are measured on a CUDA device only")
     return device
+
+
+def device_ms(fn: Callable[[], object], reps: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` over ``reps`` calls after a
+    warm-up call, without the host's time between launches: the calls are
+    queued behind a sleep kernel that outlasts their queueing, so the CUDA
+    events around them time the card's back-to-back run (the sleep doubles
+    until it does)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    while True:
+        slept, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if queued_ms < slept.elapsed_time(start):
+            return start.elapsed_time(stop) / reps
+        cycles *= 2
 
 
 def differenced_rate(

@@ -11,9 +11,12 @@ launch and set-up costs:
 
 - P1 (:func:`measure_columns`): element-steps/s of the column-build chain on
   CUDA cores and on tensor cores at (T1, W) = (16, 2) and (32, 5), over the
-  elements that fill the card; bounds: W shared-memory lookups per step at
-  the data sheet's lookup rate, and the padded one-hot ``mma`` flops per
-  step at its f16 tensor-core rate;
+  elements that fill the card, and the device ms of a 16-step launch they
+  give; bound per pipe class (:func:`column_bound`): the column's W words
+  of shared memory or the one-hot ``mma``'s int8 operations on its 4W
+  bytes, and the extract's and update's integer work, every instruction
+  (the loads, not the words) also against the issue limit; beside
+  ``index_select``'s build of one step's columns;
 - P2/P3 (:func:`measure_reads`): bytes/s read from a 256 MB source per
   variant and chunk size, and the device ms of one pass they give, beside
   ``x.sum()`` over the same source and, for the 7-plane variants, one sum
@@ -52,8 +55,9 @@ from ..kernels import stage_replay as p6
 from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
 from ..models import get_model
 from .benchmarks import CONFIG_DIR
-from .peaks import _cuda, differenced_rate
-from .roofline import DATA_SHEET_BYTES_PER_S, DATA_SHEET_OPS_PER_S
+from .peaks import _cuda, device_ms, differenced_rate
+from . import roofline
+from .roofline import DATA_SHEET_BYTES_PER_S
 
 MIN_SECONDS = 0.1  # one launch at the final count takes at least this
 READ_MIN_SECONDS = 0.05  # a read pass or sum takes 0.07-0.5 ms: a hundred or more a launch
@@ -74,16 +78,41 @@ def _bytes_rate_ok(rate: float, what: str) -> None:
         )
 
 
-def column_bound(variant: str, t1: int) -> float:
-    """Element-steps/s of the data sheet: W lookups per step on CUDA cores,
-    the padded one-hot mma flops per step on tensor cores."""
+def column_ops(variant: str, t1: int, steps: float) -> dict[str, float]:
+    """The operations by class of ``steps`` element-steps of P1's chain:
+    building the column (on CUDA cores its W words of shared memory, read by
+    the loads its table's layout needs; on tensor cores the one-hot mma's
+    int8 operations on its 4W bytes) and the extract's and update's integer
+    work (:data:`roofline.COLUMN_STEP_OPS`)."""
     if variant == "cuda_cores":
-        return DATA_SHEET_OPS_PER_S["lookup"] / p1.CONFIGS[t1][1]
-    return DATA_SHEET_OPS_PER_S["tensor_f16"] / p1.mma_flops_per_step(t1)
+        ops = {"shared_words": steps * p1.CONFIGS[t1][1], "lookup": steps * p1.CUDA_LOADS_PER_STEP[t1]}
+    else:
+        ops = {"tensor_int8": steps * p1.mma_flops_per_step(t1)}
+    ops.update({k: n * steps for k, n in roofline.COLUMN_STEP_OPS[t1].items()})
+    return ops
+
+
+def column_bound(variant: str, t1: int) -> dict:
+    """Element-steps/s of the data sheet per pipe class (:func:`column_ops`,
+    :func:`roofline.bound`, every instruction also against the issue
+    limit) and the class that binds."""
+    b = roofline.bound(0, column_ops(variant, t1, 1))
+    return {"per_s": 1e3 / b["compute_ms"], "busiest": b["busiest"]}
+
+
+def column_library(packed: torch.Tensor, b: torch.Tensor):
+    """The one PyTorch call that builds one step's columns of every element,
+    ``packed.index_select(1, b)`` (the build alone, no extract), as a
+    function of no arguments."""
+    return lambda: packed.index_select(1, b)
 
 
 def measure_columns(device: torch.device | str = "cuda") -> list[dict]:
-    """P1 on every variant at both T1."""
+    """P1 on every variant at both T1: element-steps/s differenced over steps
+    in one launch, the device ms of a 16-step launch it gives, the per-pipe
+    bound and its share, beside the library call's build of one step's
+    columns (:func:`column_library`, its device time per call: one call
+    takes a few microseconds, less than the host takes to launch it)."""
     device = _cuda(device)
     out = []
     for t1 in p1.CONFIGS:
@@ -94,12 +123,19 @@ def measure_columns(device: torch.device | str = "cuda") -> list[dict]:
                 lambda n: p1.columns_chain(variant, packed, b0, n), elements, loops=16,
                 min_seconds=MIN_SECONDS,
             )
+            library = elements / device_ms(column_library(packed, b0.long() & (t1 - 1))) * 1e3
             bound = column_bound(variant, t1)
             w = p1.CONFIGS[t1][1]
-            print(f"T1={t1} W={w} {variant}: {rate / 1e9:.2f} G col-builds/s, data-sheet bound "
-                  f"{bound / 1e9:.2f} ({rate / bound:.1%})", flush=True)
+            ms = elements * 16 / rate * 1e3
+            print(f"T1={t1} W={w} {variant}: {rate / 1e9:.2f} G col-builds/s, {ms:.5f} ms per "
+                  f"16-step launch of {elements} elements; per-pipe bound {bound['per_s'] / 1e9:.2f} "
+                  f"({bound['busiest']}), {rate / bound['per_s']:.1%}; index_select {library / 1e9:.2f} "
+                  "G column builds/s (no extract)", flush=True)
             out.append({"name": p1.variant_name(variant, t1), "t1": t1, "w": w,
-                        "elements": elements, "element_steps_per_s": rate, "bound_per_s": bound})
+                        "elements": elements, "element_steps_per_s": rate, "ms_per_16_steps": ms,
+                        "bound_per_s": bound["per_s"], "bound_class": bound["busiest"],
+                        "library_element_steps_per_s": library,
+                        "library_ms_per_16_steps": elements * 16 / library * 1e3})
     return out
 
 

@@ -54,7 +54,8 @@ from .peaks import _cuda, differenced_rate, lookup2d_peak
 # logarithm, exponential, sine, cosine) and 16 of "all other type
 # conversions" (32-bit integer to float among them); 64 32-bit integer
 # multiplies and 64 32-bit logic operations; 32 shared-memory loads (one
-# warp's: a table lookup each). Whatever the pipe, each of an SM's four
+# warp's: a table lookup each), and 32 words of shared memory (128 bytes),
+# which a wider load spends in fewer instructions. Whatever the pipe, each of an SM's four
 # sub-partitions issues one warp instruction per clock: 128 thread
 # instructions, the "issue" class, which every instruction counts against.
 DATA_SHEET_BYTES_PER_S = 3.35e12
@@ -68,8 +69,11 @@ DATA_SHEET_OPS_PER_S = {
     "logic": SMS * 64 * BOOST_HZ,
     "lookup": SMS * 32 * BOOST_HZ,
     "issue": SMS * 4 * 32 * BOOST_HZ,
-    "tensor_f16": 989e12,  # dense f16 tensor-core flops (P1's one-hot mma), not instructions
+    "tensor_f16": 989e12,  # dense f16 tensor-core flops, not instructions
+    "tensor_int8": 1979e12,  # dense int8 tensor-core operations (P1's one-hot mma), not instructions
+    "shared_words": SMS * 32 * BOOST_HZ,  # 32-bit words of shared memory moved, not instructions
 }
+NOT_INSTRUCTIONS = ("tensor_f16", "tensor_int8", "shared_words")  # left out of the issue sum
 
 # The SASS opcodes of each class, for the classes a float op's or Box-Muller's
 # instructions are counted in (:func:`pipe_counts`). FSEL, a select on a
@@ -84,6 +88,19 @@ PIPE_OPCODES = {
     "sfu": ("MUFU",),
     "conversion": ("I2F", "I2FP", "F2I", "F2F", "FRND"),
     "lookup": ("LDS",),
+}
+# The integer loops' classes (P1's, as chip_smoke.py phase 22 counts them):
+# integer compares and selects with the float ones (the Guide's row of
+# compares, minimums and maximums), bitwise operations, shifts and byte
+# permutes "logic", adds, multiply-adds and address arithmetic "int32", and,
+# apart from any class of the data sheet, shuffles and tensor-core mma.
+INTEGER_PIPE_OPCODES = {
+    **PIPE_OPCODES,
+    "compare": PIPE_OPCODES["compare"] + ("ISETP", "SEL"),
+    "logic": ("LOP3", "SHF", "PRMT"),
+    "int32": ("IADD3", "IMAD", "LEA"),
+    "shuffle": ("SHFL",),
+    "mma": ("IMMA", "HMMA"),
 }
 # One application of each float op of ops/float_ops.py as nvcc compiles it
 # for sm_90a (csrc/float_groups.cuh, as K2 and K4 run it; box-plus takes
@@ -119,6 +136,33 @@ VN_OPS_PER_EDGE = {"fp32": 2, "compare": 2}
 # sim/rng.py): ten rounds of two 32 x 32 -> 64-bit products, each a low and
 # a high word, and two three-input XORs.
 PHILOX_GROUP_OPS = {"int32": 40, "logic": 20}
+# The integer work of one element-step of P1's column chain
+# (kernels/lut_columns.py), besides building the column: the extract and
+# the update (``acc += cols[0]``, ``b = (e + b) & (T1 - 1)``), by class:
+# shifts and bitwise operations "logic", compares and selects "compare",
+# adds and multiplies "int32". Two counts, and the bound takes the smaller
+# in each class (COLUMN_STEP_OPS), so that it counts no more than either
+# way of doing it needs. COLUMN_FORMULA_OPS counts ``extract``'s formula,
+# once per distinct operation: the word select as a compare and a select
+# per candidate word, the field's shifts and masks, split packing's high
+# bit. COLUMN_SASS_OPS counts the CUDA-core kernels' loops as nvcc builds
+# them for sm_90a (cuobjdump -sass; chip_smoke.py phase 22 counts them
+# again, and holds every kernel's loop at or above COLUMN_STEP_OPS), per
+# element-step, the loop's own counter and branch left out: at T1 = 32 the
+# nibble word is chosen by two selects on two predicates and shifts and
+# masks merge into LOP3, and IMAD also shifts, moves and addresses.
+COLUMN_FORMULA_OPS = {
+    16: {"logic": 5, "compare": 2, "int32": 3},
+    32: {"logic": 10, "compare": 6, "int32": 3},
+}
+COLUMN_SASS_OPS = {
+    16: {"logic": 5.125, "compare": 2, "int32": 7.125},
+    32: {"logic": 6.5, "compare": 2, "int32": 5.5},
+}
+COLUMN_STEP_OPS = {
+    t1: {k: min(n, COLUMN_SASS_OPS[t1][k]) for k, n in ops.items()}
+    for t1, ops in COLUMN_FORMULA_OPS.items()
+}
 COPY_BYTES = 256 * 1024 * 1024  # one K6 buffer, five times the 50 MB L2
 
 
@@ -220,16 +264,17 @@ def _table_bytes(tables: TrellisTables) -> int:
     return sum(np.asarray(getattr(tables, n)).size for n in names)
 
 
-def pipe_counts(opcodes: dict[str, float]) -> dict[str, float]:
-    """Instructions per class of :data:`PIPE_OPCODES` in a count of SASS
-    opcodes."""
-    return {k: sum(opcodes.get(op, 0) for op in ops) for k, ops in PIPE_OPCODES.items()}
+def pipe_counts(opcodes: dict[str, float], table: dict = PIPE_OPCODES) -> dict[str, float]:
+    """Instructions per class of ``table`` (:data:`PIPE_OPCODES`) in a
+    count of SASS opcodes."""
+    return {k: sum(opcodes.get(op, 0) for op in ops) for k, ops in table.items()}
 
 
-def sass_counts(opcodes: dict[str, float]) -> dict[str, float]:
+def sass_counts(opcodes: dict[str, float], table: dict = PIPE_OPCODES) -> dict[str, float]:
     """:func:`pipe_counts` and, as "issue", every instruction of the count:
     the operations of a loop whose every instruction is the work."""
-    return {**{k: n for k, n in pipe_counts(opcodes).items() if n}, "issue": sum(opcodes.values())}
+    counts = pipe_counts(opcodes, table)
+    return {**{k: n for k, n in counts.items() if n}, "issue": sum(opcodes.values())}
 
 
 # One application of each float op by class, from its SASS.
@@ -278,10 +323,11 @@ def bound(moved: float, ops: dict[str, float]) -> dict:
     :data:`DATA_SHEET_OPS_PER_S`): the larger of the bytes over the memory
     rate and the busiest class's count over its rate, named by ``bound_by``
     and ``busiest``. Every instruction also counts against the issue
-    limit: "issue" is at least the sum of the other classes but the tensor
-    cores' flops (a count of a loop's every instruction can give more)."""
+    limit: "issue" is at least the sum of the other classes but those of
+    :data:`NOT_INSTRUCTIONS` (a count of a loop's every instruction can give
+    more)."""
     ops = {k: n for k, n in ops.items() if n}
-    issued = sum(n for k, n in ops.items() if k not in ("issue", "tensor_f16"))
+    issued = sum(n for k, n in ops.items() if k != "issue" and k not in NOT_INSTRUCTIONS)
     if issued or "issue" in ops:
         ops["issue"] = max(ops.get("issue", 0.0), issued)
     io_ms = moved / DATA_SHEET_BYTES_PER_S * 1e3

@@ -8,6 +8,13 @@ shrunk through their module globals:
 
 - P1: the plain column-build chain equals ``vpu_variant`` and
   ``mxu_variant`` bit for bit on the scripts' own inputs, at both packings;
+  the roofline's formula count of ``extract``'s and the update's
+  operations is what tracing them counts, and the bound takes the smaller
+  of it and the kernel's count in each class, naming the class that binds; a plain model of the tensor-core kernel (the PTX fragment
+  layouts of its u8 mma, ``__byte_perm`` and the shuffles) over the B
+  fragments the wrapper builds gives every lane all W words of its own
+  element for every b, and the CUDA-core table the wrapper lays out gives
+  ``packed[:, b]`` at conflict-free addresses;
 - P2/P3: with a source of distinct rows (the module's ``jnp.zeros`` swapped
   for an ``arange``), the rows the script's slot 0 holds last are the rows
   ``read_schedule`` puts last into slot 0, and its byte count is the
@@ -117,11 +124,290 @@ def test_column_chain_wrapper_runs_the_plain_version_on_the_cpu():
 
 def test_column_bounds_follow_the_data_sheet():
     assert roofline.DATA_SHEET_OPS_PER_S["tensor_f16"] == 989e12
-    assert p1.mma_flops_per_step(16) == 2 * 16 * 8 and p1.mma_flops_per_step(32) == 2 * 32 * 24
-    assert probes.column_bound("cuda_cores", 16) == pytest.approx(4.18e12, rel=5e-3)
-    assert probes.column_bound("tensor_cores", 16) == pytest.approx(3.86e12, rel=5e-3)
-    assert probes.column_bound("cuda_cores", 32) == pytest.approx(1.67e12, rel=5e-3)
-    assert probes.column_bound("tensor_cores", 32) == pytest.approx(0.644e12, rel=5e-3)
+    assert roofline.DATA_SHEET_OPS_PER_S["tensor_int8"] == 1979e12
+    assert roofline.DATA_SHEET_OPS_PER_S["shared_words"] == roofline.DATA_SHEET_OPS_PER_S["lookup"]
+    # The mma on the column's 4W bytes, not the kernel's padded n-tiles.
+    assert p1.mma_flops_per_step(16) == 2 * 16 * 8 and p1.mma_flops_per_step(32) == 2 * 32 * 20
+    # CUDA cores: W words of shared memory, in the loads the layout needs
+    # (one 128-bit and one 32-bit at T1 = 32), which alone count as issue.
+    ops = probes.column_ops("cuda_cores", 32, 10)
+    assert ops == {"shared_words": 50, "lookup": 20, "logic": 65, "compare": 20, "int32": 30}
+    assert probes.column_ops("tensor_cores", 16, 1) == {"tensor_int8": 256, **roofline.COLUMN_STEP_OPS[16]}
+    b = roofline.bound(0, ops)
+    issue_ms = (20 + 65 + 20 + 30) / roofline.DATA_SHEET_OPS_PER_S["issue"] * 1e3
+    assert b["busiest"] == "shared_words" and b["compute_ms"] > issue_ms
+    assert roofline.bound(0, {"shared_words": 1.0, "tensor_int8": 1.0})["busiest"] == "shared_words"
+
+
+@pytest.mark.parametrize("variant,t1,per_clock,busiest", [
+    # Per SM and clock: T1 = 16 issues 2 loads and 10 integer operations a
+    # step at 128 a clock; T1 = 32 moves 5 words at 32 a clock; the tensor
+    # cores' 16 issue 10 (tied with the logic pipe's 5 at 64); their 32's
+    # mma, 1280 int8 operations at 1979 TOP/s, binds.
+    ("cuda_cores", 16, 128 / 12, ("issue",)),
+    ("cuda_cores", 32, 32 / 5, ("shared_words",)),
+    ("tensor_cores", 16, 128 / 10, ("issue", "logic")),
+    ("tensor_cores", 32, 1979e12 / 1280 / (roofline.SMS * roofline.BOOST_HZ), ("tensor_int8",)),
+])
+def test_column_bound_names_the_class_that_binds(variant, t1, per_clock, busiest):
+    b = probes.column_bound(variant, t1)
+    assert b["per_s"] == pytest.approx(per_clock * roofline.SMS * roofline.BOOST_HZ, rel=1e-12)
+    assert b["busiest"] in busiest
+
+
+def test_integer_sass_counts_follow_their_classes():
+    opcodes = {"LOP3": 4, "SHF": 1, "PRMT": 2, "SEL": 2, "ISETP": 1, "IMAD": 3, "LEA": 1,
+               "SHFL": 1, "IMMA": 2, "LDS": 2, "BRA": 1}
+    assert roofline.sass_counts(opcodes, roofline.INTEGER_PIPE_OPCODES) == {
+        "logic": 7, "compare": 3, "int32": 4, "shuffle": 1, "mma": 2, "lookup": 2, "issue": 20}
+    # The float table is unchanged: integer work counts as issue only.
+    assert roofline.sass_counts(opcodes) == {"lookup": 2, "issue": 20}
+
+
+class Op:
+    """A value in a traced column step: every operation on it is recorded
+    once per distinct (operation, operands), as a compiler keeps it."""
+
+    CLASS = {"rshift": "logic", "lshift": "logic", "and": "logic", "or": "logic",
+             "add": "int32", "mul": "int32", "eq": "compare", "where": "compare"}
+
+    def __init__(self, seen, key):
+        self.seen, self.key = seen, key
+
+    def _op(self, name, other, swap=False):
+        o = other.key if isinstance(other, Op) else ("const", other)
+        key = (name, o, self.key) if swap else (name, self.key, o)
+        self.seen.setdefault(key, None)
+        return Op(self.seen, key)
+
+    def __rshift__(self, o): return self._op("rshift", o)
+    def __lshift__(self, o): return self._op("lshift", o)
+    def __and__(self, o): return self._op("and", o)
+    def __or__(self, o): return self._op("or", o)
+    def __add__(self, o): return self._op("add", o)
+    def __radd__(self, o): return self._op("add", o, True)
+    def __mul__(self, o): return self._op("mul", o)
+    def __rmul__(self, o): return self._op("mul", o, True)
+    def __eq__(self, o): return self._op("eq", o)
+    __hash__ = None
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        assert func is torch.where
+        c, x, y = args
+        key = ("where", c.key, x.key, y.key)
+        c.seen.setdefault(key, None)
+        return Op(c.seen, key)
+
+
+@pytest.mark.parametrize("t1", [16, 32])
+def test_column_step_ops_count_the_extract_and_the_update(t1):
+    fb, w = p1.CONFIGS[t1]
+    seen = {}
+    cols = [Op(seen, ("word", k)) for k in range(w)]
+    b, acc = Op(seen, "b"), Op(seen, "acc")
+    e = p1.extract(cols, b, fb)
+    acc = acc + cols[0]
+    b = (e + b) & (t1 - 1)
+    counts = {}
+    for key in seen:
+        counts[Op.CLASS[key[0]]] = counts.get(Op.CLASS[key[0]], 0) + 1
+    assert counts == roofline.COLUMN_FORMULA_OPS[t1]
+    # The bound takes the smaller of the formula's and the kernel's count.
+    sass = roofline.COLUMN_SASS_OPS[t1]
+    assert roofline.COLUMN_STEP_OPS[t1] == {k: min(n, sass[k]) for k, n in counts.items()}
+
+
+# A plain model of csrc/lut_columns.cu's tensor_cores_kernel on one tile pair
+# of one warp, with the PTX ISA's fragment layouts of
+# mma.m16n8k16 / m16n8k32 .row.col.s32.u8.u8.s32 (lane = 4 g + q):
+#   A, register r: 4 bytes of row g + 8 (r & 1), k = 16 (r >> 1) + 4 q + i;
+#   B, register r: 4 bytes of column g, k = 16 r + 4 q + i;
+#   C, register j: row g + 8 (j >> 1), column 2 q + (j & 1).
+LANE = np.arange(32)
+G, Q = LANE >> 2, LANE & 3
+Q0, Q1 = Q & 1, Q >> 1
+
+
+def byte_perm(x, y, s):
+    """``__byte_perm`` per lane: byte i of the result is byte ``s >> 4 i &
+    7`` of the 8 bytes of (y, x), x low."""
+    x, y, s = (np.broadcast_to(np.asarray(v, dtype=np.uint64), LANE.shape) for v in (x, y, s))
+    pool = x | (y << np.uint64(32))
+    out = np.zeros(LANE.shape, dtype=np.uint64)
+    for i in range(4):
+        sel = (s >> np.uint64(4 * i)) & np.uint64(7)
+        out |= ((pool >> (np.uint64(8) * sel)) & np.uint64(255)) << np.uint64(8 * i)
+    return out
+
+
+def shfl(v, src):
+    return np.asarray(v)[src]
+
+
+def shl1(s):
+    """PTX ``shl.b32 1, s``: the amount is unsigned and clamped at 32."""
+    s = np.asarray(s, dtype=np.int64) & 0xFFFFFFFF
+    return np.where(s < 32, np.left_shift(1, np.minimum(s, 31)), 0).astype(np.uint64)
+
+
+def mma(a, bf, t1):
+    """The accumulators [32, 4] of one m16n8k(T1) u8 mma from each lane's A
+    and B registers, and the A and B matrices they form."""
+    amat, bmat = np.full((16, t1), -1, np.int64), np.full((t1, 8), -1, np.int64)
+    for lane in LANE:
+        g, q = lane >> 2, lane & 3
+        for r, reg in enumerate(a):
+            for i in range(4):
+                amat[g + 8 * (r & 1), 16 * (r >> 1) + 4 * q + i] = int(reg[lane]) >> 8 * i & 255
+        for r, reg in enumerate(bf):
+            for i in range(4):
+                bmat[16 * r + 4 * q + i, g] = int(reg[lane]) >> 8 * i & 255
+    assert (amat >= 0).all() and (bmat >= 0).all()  # every entry from one lane
+    d = amat @ bmat
+    c = np.stack([d[G + 8 * (j >> 1), 2 * Q + (j & 1)] for j in range(4)], axis=1)
+    return c.astype(np.uint64), amat, bmat
+
+
+def tensor_pair_step(frags, b, t1):
+    """One step of a tile pair as the kernel runs it: each lane's A
+    registers per tile, its accumulators per tile and n-tile, and its words
+    in the lane's order (``cols``)."""
+    kr, nt_count, w = t1 // 16, p1.N_TILES[t1], p1.CONFIGS[t1][1]
+    bf = [[frags[nt, r] for r in range(kr)] for nt in range(nt_count)]
+    tile = np.where(Q1, 0x0004, 0x0040)
+    row = np.where(Q0, 0x0004, 0x0040)
+    keep = np.where(Q1, np.where(Q0, 0x3276, 0x1054), np.where(Q0, 0x7632, 0x5410))
+    send = np.where(Q1, np.where(Q0, 0x1054, 0x3276), np.where(Q0, 0x5410, 0x7632))
+    word4 = np.where(Q0, 0x1076, 0x7610)
+    group = LANE & ~3
+    a = [[None] * (t1 // 8) for _ in range(2)]
+    for t in range(2):
+        for h in range(2):
+            s = 8 * shfl(b, group + 2 * t + h).astype(np.int64) - 32 * Q
+            for r in range(kr):
+                a[t][2 * r + h] = shl1(s - 128 * r)
+    c, mats = [[None] * nt_count for _ in range(2)], []
+    for t in range(2):
+        for nt in range(nt_count):
+            c[t][nt], amat, bmat = mma(a[t], bf[nt], t1)
+            mats.append((t, nt, amat, bmat))
+    cols = [None] * w
+    nx = 2 * (w // 2)
+    for x in range(nx // 2):
+        u = []
+        for h in range(2):
+            m0 = byte_perm(c[0][x][:, 2 * h], c[1][x][:, 2 * h], tile)
+            m1 = byte_perm(c[0][x][:, 2 * h + 1], c[1][x][:, 2 * h + 1], tile)
+            u.append(byte_perm(m0, m1, 0x5140))
+        kept = byte_perm(u[0], u[1], 0x5410)
+        got = shfl(byte_perm(u[0], u[1], 0x7632), LANE ^ 2)
+        cols[2 * x] = byte_perm(kept, got, keep)
+        cols[2 * x + 1] = shfl(byte_perm(kept, got, send), LANE ^ 1)
+    if w > nx:
+        v = []
+        for j in range(2):
+            y = byte_perm(c[0][-1][:, j], c[1][-1][:, j], tile)
+            z = byte_perm(c[0][-1][:, 2 + j], c[1][-1][:, 2 + j], tile)
+            v.append(byte_perm(y, z, row))
+        u = byte_perm(v[0], v[1], 0x5140)
+        cols[w - 1] = byte_perm(u, shfl(u, LANE ^ 1), word4)
+    return mats, c, cols
+
+
+@pytest.mark.parametrize("t1", [16, 32])
+def test_tensor_core_fragments_reproduce_the_columns(t1):
+    fb, w = p1.CONFIGS[t1]
+    packed, _ = p1.probe_inputs(t1, 32, seed=7)
+    words = packed.astype(np.int64) & 0xFFFFFFFF
+    frags = p1.b_fragments(torch.as_tensor(packed)).numpy().astype(np.int64) & 0xFFFFFFFF
+    mat = p1.byte_matrix(torch.as_tensor(packed)).numpy()
+    assert frags.shape == (p1.N_TILES[t1], t1 // 16, 32)
+    # The element of each lane: row g + 8 q0 of tile q1, element 16 t + row.
+    element = 16 * Q1 + G + 8 * Q0
+    for shift in range(t1):  # every element meets every b, a group's four differ
+        b_of = (np.arange(32) * 5 + shift) % t1  # b per element of the pair
+        b = b_of[element]
+        mats, c, cols = tensor_pair_step(frags, b, t1)
+        for t, nt, amat, bmat in mats:
+            rows = b_of[16 * t:16 * t + 16]
+            assert np.array_equal(amat, np.eye(t1, dtype=np.int64)[rows])  # one-hot A
+            assert np.array_equal(bmat, mat[:, 8 * nt:8 * nt + 8])
+            # Accumulators: column 2q + (j & 1) of the byte matrix at row b.
+            for j in range(4):
+                want = mat[rows[G + 8 * (j >> 1)], 8 * nt + 2 * Q + (j & 1)]
+                assert np.array_equal(c[t][nt][:, j], want)
+        # Every lane holds all W words of its own element, in the lane's
+        # order: word k (< 4) at k ^ q0, the high-bit word last.
+        for k in range(w):
+            at = k ^ Q0 if k < 2 * (w // 2) else np.full(32, k)
+            got = np.stack(cols)[at, LANE]
+            assert np.array_equal(got, words[k, b])
+        # The extract on them, word index flipped by q0, is the plain one.
+        lane_cols = [torch.as_tensor(np.stack(cols)[k].astype(np.int64)) for k in range(w)]
+        a = torch.as_tensor(b.astype(np.int64))
+        flipped = extract_flipped(lane_cols, a, torch.as_tensor(Q0), fb)
+        want = p1.extract([torch.as_tensor(words[k, b]) for k in range(w)], a, fb)
+        assert torch.equal(flipped, want)
+
+
+def extract_flipped(cols, a, q0, fb):
+    """The kernel's extract on a lane's words: the word that ``a ^ (q0 <<
+    3)`` selects, the field of ``a`` in it."""
+    wa = a ^ (q0 << 3)
+    word = cols[0]
+    last = len(cols) - (fb == 5)
+    for k in range(1, last):
+        word = torch.where((wa >> 3) == k, cols[k], word)
+    field = (word >> (fb if fb != 5 else 4) * (a & 7)) & (15 if fb == 5 else (1 << fb) - 1)
+    if fb == 5:
+        field = field | (((cols[-1] >> (a & 31)) & 1) << 4)
+    return field
+
+
+@pytest.mark.parametrize("t1", [16, 32])
+def test_cuda_core_table_reads_the_columns(t1):
+    """The words csrc/lut_columns.cu's cuda_cores_kernel reads for column b
+    from the table :func:`cuda_table` lays out are ``packed[:, b]``; at T1 =
+    32 the 128-bit load of the 8 lanes of a quarter-warp phase falls in 8
+    different bank groups of 16 bytes whatever their b."""
+    w = p1.CONFIGS[t1][1]
+    packed, _ = p1.probe_inputs(t1, 32, seed=9)
+    table = p1.cuda_table(torch.as_tensor(packed)).numpy()
+    want_words = 8 * t1 * 4 + t1 if t1 == 32 else w * t1
+    assert table.shape == (want_words,)
+    rng = np.random.default_rng(0)
+    for b in list(range(t1)) + [rng.integers(0, t1, 32) for _ in range(8)]:
+        b = np.broadcast_to(b, LANE.shape)
+        if t1 == 32:
+            at = (b * 8 + (LANE & 7)) * 4  # uint4 index b * 8 + lane % 8
+            got = [table[at + k] for k in range(4)] + [table[8 * t1 * 4 + b]]
+            for phase in range(4):
+                lanes = slice(8 * phase, 8 * phase + 8)
+                assert len(set((at[lanes] // 4) % 8)) == 8
+        else:
+            got = [table[k * t1 + b] for k in range(w)]
+        assert np.array_equal(np.stack(got), packed[:, b])
+
+
+def test_column_operands_are_built_once_per_unchanged_lut():
+    packed = torch.as_tensor(p1.probe_inputs(32, 32, seed=3)[0])
+    cpu = torch.device("cpu")
+    for variant in p1.VARIANTS:
+        first = p1._operand_on(variant, packed, cpu)
+        assert p1._operand_on(variant, packed, cpu) is first
+        assert torch.equal(first, p1.operand(variant, packed))
+        packed.add_(1)  # changed in place: built again
+        again = p1._operand_on(variant, packed, cpu)
+        assert again is not first and torch.equal(again, p1.operand(variant, packed))
+        assert p1._operand_on(variant, packed.clone(), cpu) is not again
+
+
+def test_column_library_builds_one_steps_columns():
+    packed, b0 = (torch.as_tensor(a) for a in p1.probe_inputs(32, 1024, seed=4))
+    b = b0.long() & 31
+    cols = probes.column_library(packed, b)()
+    assert torch.equal(cols, torch.stack([packed[k][b] for k in range(5)]))
 
 
 # -- P2 / P3 ----------------------------------------------------------------------
