@@ -15,7 +15,8 @@ demapper, batch 512 x 8 steps, i_max 50) through the Philox kernel's bits
 and normal planes and K2 (K4 on DVB-S2), with the resumable sweep and the
 CLI; data-parallel decoding over ``torch.distributed`` (ranks as processes
 of their own, NCCL at world size 1, two gloo ranks sharing the card) and
-the port's decoder construction.
+the port's decoder construction; the quantizer class, the keyed samplers,
+the decoder factory and the results queue with its parity report.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it):
@@ -232,14 +233,31 @@ the port's decoder construction.
     ``wlan_T16_0.8`` must decode the headline inside phase 4's bands); a
     headline dispatch with the rebuilt ``wlan_T16_0.8`` counts what phase
     4's does.
+39. the last public API and the results queue at the headline's width
+    (WLAN N=1296, IB |T|=16, ``wlan_T16_0.8``, 4096 codewords): (a)
+    ``AWGNChannelQuantizer`` on the card: ``quantize`` and ``quantize_llr``
+    of a 1296 x 4096 plane equal (``==``) the CPU class's; the keyed
+    samplers (one Philox uniform plane a call) equal the samples of
+    ``rng.plane_plain``'s uniforms on the card; the all-zero clusters' shares
+    within 5 binomial standard deviations of p(t|x=0); (b)
+    ``make_fused_ib_decoder`` decodes those clusters in one K1 launch equal
+    to a ``FusedIBDecoder``'s, and on its first two tiles to the twin; (c)
+    ``cli/queue.py``'s ``run`` in ``chiprun_out/queue39``: the configs
+    stage builds ``wlan_T16_0.8`` (compared with the committed file), the
+    ``wlan_ib_T16_enc`` sweep cut to 0.6-0.8 dB at 4096 blocks a point,
+    its 0.8 dB point reopened and extended to 8192 blocks equal (errors,
+    frame errors, blocks ``==``, mean iterations within 1e-9) to a straight
+    run at 8192, and the report stage's ``PARITY.md`` with the card in its
+    header; each run's seconds.
 
 Each phase prints one line per check and its seconds; any failure raises and
 exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
 the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4,p5_p6}.json``.
 The last lines are the run's total seconds, the kernels' JSON record (the
 M-ary path's launches added to K2's, K4's and the planes', phases 35, 36 and
-38's ranks' and dispatches' to K1's, K4's and the channel input's; phase
-37's CLI ranks report none), the card's name and power limit, and the
+38's ranks' and dispatches' to K1's, K4's and the channel input's, phase
+39's to K1's and the uniform plane's; phase 37's CLI ranks and phase 39's
+queue processes report none), the card's name and power limit, and the
 device record.
 
 Usage: python3 chip_smoke.py
@@ -1567,6 +1585,146 @@ def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> c
     return launched
 
 
+def api_queue_phase(dev, card: str, lap, layout) -> collections.Counter:
+    """Phase 39: the last public API and the results queue on the card, at
+    the headline's width (WLAN N=1296, IB |T|=16, ``wlan_T16_0.8``, 4096
+    codewords). Returns the launches of K1 (the factory's decoder) and of the
+    Philox kernel's uniform plane (the keyed samplers)."""
+    import shutil
+
+    import numpy as np
+
+    from informationbottleneckdecodingldpc_torch.channel import (
+        AWGNChannelQuantizer, sample_clusters_from_uniform, sample_llrs_from_uniform,
+        sigma2_from_ebn0_db)
+    from informationbottleneckdecodingldpc_torch.cli import queue
+    from informationbottleneckdecodingldpc_torch.construct import DecoderConfig
+    from informationbottleneckdecodingldpc_torch.kernels import (
+        FusedIBDecoder, ib_lut_decode_tiled, make_fused_ib_decoder, philox_planes)
+    from informationbottleneckdecodingldpc_torch.sim import rng
+    from informationbottleneckdecodingldpc_torch.utils.benchmarks import CONFIG_DIR
+
+    launched = collections.Counter()
+    rows, batch = layout.n_vars, 4096
+
+    # -- 39a: the quantizer class and the keyed samplers ------------------------------------
+    sigma2 = sigma2_from_ebn0_db(0.8, layout.code_rate)
+    q = AWGNChannelQuantizer(sigma2, 3.0, 16, 2000, device="cuda")
+    host = AWGNChannelQuantizer(sigma2, 3.0, 16, 2000, device="cpu")
+    g = torch.Generator(device=dev)
+    g.manual_seed(39)
+    y = 1.0 + math.sqrt(sigma2) * torch.randn((rows, batch), generator=g, device=dev)
+    for op in ("quantize", "quantize_llr"):
+        got, want = getattr(q, op)(y), getattr(host, op)(y.cpu())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"{op} on the card differs from the CPU class in "
+                                 f"{int((got.cpu() != want).sum())} elements")
+    key = rng.key_words(0x39ABCDEF01234567)
+    bits = torch.randint(0, 2, (rows, batch), generator=g, device=dev, dtype=torch.int8)
+    philox_planes.launches.clear()
+    clusters, llrs = q.sample_clusters(key, bits), q.sample_llrs(key, bits)
+    zeros = q.sample_clusters(key, torch.zeros_like(bits))
+    launched["uniform"] = philox_planes.launches["uniform"]
+    if philox_planes.launches != collections.Counter(uniform=3):
+        raise AssertionError(f"the keyed samplers launched {dict(philox_planes.launches)}, not one "
+                             "uniform plane each")
+    t = q.device_tables
+    u = rng.plane_plain("uniform", key, rows, 0, batch, device=dev)
+    if not (torch.equal(clusters, sample_clusters_from_uniform(t.cdf, u, bits))
+            and torch.equal(llrs, sample_llrs_from_uniform(t.cdf, t.llrs, u, bits))
+            and torch.equal(zeros, sample_clusters_from_uniform(t.cdf, u, torch.zeros_like(bits)))):
+        raise AssertionError("the keyed samplers on the card differ from the plain uniforms' samples")
+    # All-zero bits: each cluster's share within 5 binomial standard deviations of p(t|x=0).
+    n = zeros.numel()
+    emp = torch.bincount(zeros.flatten().long(), minlength=16).cpu().numpy() / n
+    p = np.diff(q.tables.cdf_t_given_x0)
+    band = 5 * np.sqrt(p * (1 - p) / n)
+    if np.any(np.abs(emp - p) > band):
+        raise AssertionError(f"cluster shares {emp} outside 5 sd of {p}")
+    print(f"[39 quantizer] AWGNChannelQuantizer(sigma2 {sigma2:.6f} = 0.8 dB, 3.0, 16, 2000) on "
+          f"{dev}: quantize and quantize_llr of a {rows} x {batch} plane equal the CPU class's; "
+          "sample_clusters / sample_llrs (random bits) and sample_clusters (zero bits), one Philox "
+          "uniform plane each, equal the plain plane's samples; all-zero shares within 5 sd "
+          f"(largest |share - p| {np.abs(emp - p).max():.2e}, band {band.max():.2e}) on {card}",
+          flush=True)
+
+    # -- 39b: the decoder factory ------------------------------------------------------------
+    tables = DecoderConfig.load(str(CONFIG_DIR / "wlan_T16_0.8.npz")).tables
+    dec = make_fused_ib_decoder(layout, tables)
+    ref = FusedIBDecoder(layout, tables)
+    got, want = dec(zeros), ref(zeros)
+    torch.cuda.synchronize()
+    launched["k1"] = dec.launches
+    bt = dec.batch_tile
+    twin = ib_lut_decode_tiled(layout, dec.trellis(dev), zeros[:, :2 * bt], bt)
+    if not (isinstance(dec, FusedIBDecoder) and dec.launches == 1
+            and torch.equal(got.outputs, want.outputs)
+            and torch.equal(got.unsatisfied, want.unsatisfied)
+            and float(got.iterations) == float(want.iterations)):
+        raise AssertionError("make_fused_ib_decoder's decoder differs from a FusedIBDecoder")
+    if not (torch.equal(got.outputs[:, :2 * bt], twin.outputs)
+            and torch.equal(got.unsatisfied[:2 * bt], twin.unsatisfied)):
+        raise AssertionError("the factory's K1 differs from its twin on the first two tiles")
+    print(f"[39 factory] make_fused_ib_decoder(wlan-1296, wlan_T16_0.8) decodes the {batch} "
+          f"sampled codewords in one K1 launch equal to a FusedIBDecoder's (outputs, unsatisfied, "
+          f"mean iterations {float(got.iterations):.4f}) and, on its first two tiles of {bt}, to "
+          f"the twin on {card}", flush=True)
+    del y, bits, clusters, llrs, zeros, u, got, want, twin
+    torch.cuda.empty_cache()
+
+    # -- 39c: the queue at reduced depth, in a root of its own ------------------------------
+    root = Path(__file__).resolve().parent / "chiprun_out" / "queue39"
+    shutil.rmtree(root, ignore_errors=True)
+    base = next(s for s in queue.SWEEPS if s.name == "wlan_ib_T16_enc")
+    cut = " --max-db 0.8 --min-errors 1000000000"
+    sweep = queue.Sweep(base.name, base.args + cut + " --max-blocks-per-point 4096")
+    straight = queue.Sweep("wlan_ib_T16_enc_straight",
+                           base.args + cut + " --start-db 0.8 --max-blocks-per-point 8192")
+    extension = queue.Extension(base.name, 0.8, 10**9, 8192, 512)
+    config = [c for c in queue.CONFIGS if c[0] == "wlan_T16_0.8"]
+    for stages, sweeps, extensions in ((["configs", "sweeps", "extend"], [sweep], [extension]),
+                                       (["sweeps"], [straight], []), (["report"], [], [])):
+        t0 = time.perf_counter()
+        failed = queue.run(stages, config, sweeps, extensions, root, "cuda")
+        seconds = time.perf_counter() - t0
+        if failed:
+            logs = {f.name: f.read_text()[-2000:] for f in (root / queue.LOG_DIR).glob("*.log")}
+            raise AssertionError(f"queue stages {failed} failed; logs: {json.dumps(logs)}")
+        print(f"[39 queue] stages {','.join(stages)} ({', '.join(s.name for s in sweeps) or '-'}) "
+              f"in {seconds:.1f} s on {card}", flush=True)
+    with np.load(root / queue.CFG_DIR / "wlan_T16_0.8.npz") as z, \
+            np.load(CONFIG_DIR / "wlan_T16_0.8.npz") as w:
+        same = set(z.files) == set(w.files) and all(np.array_equal(z[k], w[k]) for k in w.files)
+    points = json.loads((root / sweep.results).read_text())["points"]
+    (ref_point,) = json.loads((root / straight.results).read_text())["points"]
+    extended = points[-1]
+    keys = ("errors", "frame_errors", "blocks")
+    if [p["ebn0_db"] for p in points] != [0.6, 0.7, 0.8] or [p["blocks"] for p in points] != [
+            4096, 4096, 8192]:
+        raise AssertionError(f"the queue's sweep wrote {points}")
+    if ([extended[k] for k in keys] != [ref_point[k] for k in keys]
+            or abs(extended["mean_iterations"] - ref_point["mean_iterations"]) > 1e-9):
+        raise AssertionError(f"the extended 0.8 dB point {extended} differs from the straight "
+                             f"run's {ref_point}")
+    report = (root / "results/torch/PARITY.md").read_text()
+    header = f"Card: {nvidia_smi()}."
+    if header not in report or "| 0.8 | " not in report:
+        raise AssertionError(f"the report lacks the card line {header!r} or the 0.8 dB row")
+    print(f"[39 queue] configs stage: wlan_T16_0.8 built on this host, "
+          f"{'every array equal to' if same else 'NOT equal to'} the committed file; sweep "
+          f"wlan_ib_T16_enc (encoded, 512 x 8, seed 20) 0.6-0.8 dB at 4096 blocks a point, 0.8 dB "
+          f"reopened and extended to 8192: errors, frame errors, blocks "
+          f"{[extended[k] for k in keys]}, mean iterations {extended['mean_iterations']:.6f}, "
+          f"equal to a straight run's {[ref_point[k] for k in keys]}, "
+          f"{ref_point['mean_iterations']:.6f}; coded Mbit/s a point (the first carries the first "
+          f"launches) "
+          f"{[round(p['coded_bits_per_s'] / 1e6, 2) for p in points]}, straight "
+          f"{ref_point['coded_bits_per_s'] / 1e6:.2f}; PARITY.md written with {header!r}; the "
+          "child processes' launches are not counted", flush=True)
+    lap(39)
+    return launched
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -2547,6 +2705,15 @@ def main() -> None:
         if r["name"] in parallel_kernels:
             r["launches"] += parallel[parallel_kernels[r["name"]]]
     print(f"[parallel] launches in phases 35, 36 and 38: {json.dumps(dict(parallel))}", flush=True)
+    api = api_queue_phase(dev, card, lap, layout)
+    for r in records:
+        if r["name"] == "ib_lut_fused":
+            r["launches"] += api["k1"]
+        elif r["name"] == "philox_planes_uniform":
+            r["launches"] += api["uniform"]
+            r["note"] = ("its launches are the keyed samplers' (phase 39a); every engine step draws "
+                         "its plane in registers (channel_input_*)")
+    print(f"[api] launches in phase 39: {json.dumps(dict(api))}", flush=True)
     print(f"[total seconds] {time.perf_counter() - started:.1f}", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in (*KERNEL_KEYS, "note") if k in r} for r in records

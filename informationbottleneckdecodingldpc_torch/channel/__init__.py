@@ -15,6 +15,7 @@ from .modulation import (
     qam_map,
 )
 from .quantizer import (
+    AWGNChannelQuantizer,
     DeviceQuantizerTables,
     QuantizerTables,
     build_quantizer_tables,
@@ -22,10 +23,13 @@ from .quantizer import (
     quantize_llr_with,
     quantize_with,
     sample_clusters_from_uniform,
+    sample_clusters_with,
     sample_llrs_from_uniform,
+    sample_llrs_with,
 )
 
 __all__ = [
+    "AWGNChannelQuantizer",
     "Constellation",
     "DeviceQuantizerTables",
     "LDPCTransmitter",
@@ -47,6 +51,8 @@ __all__ = [
     "quantize_llr_with",
     "quantize_with",
     "sample_clusters_from_uniform",
+    "sample_clusters_with",
     "sample_llrs_from_uniform",
+    "sample_llrs_with",
     "sigma2_from_ebn0_db",
 ]

@@ -4,6 +4,9 @@ Port of ``channel/quantizer.py``: the tables are built once on the host in
 numpy (fine grid + exact DP symmetric IB, the port's ``ib`` module); the
 per-sample operations are plain PyTorch on float32 tables, so that cluster
 boundaries agree exactly with the JAX side, which also compares in float32.
+The keyed samplers draw their uniforms from the engine's Philox planes
+(``sim/rng.py``) in place of ``jax.random``; :class:`AWGNChannelQuantizer`
+binds the tables on one device.
 
 Conventions (contracts with the decoders): bit 0 maps to +1; cluster labels
 ascend with y; ``limits[T/2] = 0``; inversion sampling draws t ~ p(t|x=0)
@@ -145,3 +148,74 @@ def sample_llrs_from_uniform(
 ) -> torch.Tensor:
     """Float32 LLR of clusters inversion-sampled from the uniforms ``u``."""
     return llrs[sample_clusters_from_uniform(cdf, u, bits)]
+
+
+def _keyed_uniforms(key: tuple[int, int], bits: torch.Tensor) -> torch.Tensor:
+    """Float32 uniforms shaped like ``bits`` from the Philox key ``key``."""
+    from ..sim import rng  # sim.rng imports this module
+
+    if bits.dim() == 2:
+        rows, batch = bits.shape
+        return rng.draw("uniform", key, rows, 0, batch, bits.device)
+    return rng.draw("uniform", key, 1, 0, bits.numel(), bits.device).reshape(bits.shape)
+
+
+def sample_clusters_with(
+    cdf: torch.Tensor, key: tuple[int, int], bits: torch.Tensor
+) -> torch.Tensor:
+    """Draw t ~ p(t | x=bit) by inversion, mirrored for bit 1, with the
+    uniforms of the Philox key ``key`` (``sim/rng.py`` ``key_words``; not a
+    JAX key, and not JAX's draws: threefry is not Philox).
+
+    A 2-D ``bits`` is ``[rows, batch]``, the engine's layout: column j is
+    codeword j of the uniform plane ``rng.draw("uniform", key, rows, 0,
+    batch)``. Any other shape is drawn as one ``[1, numel]`` plane (one row
+    per element, in row-major order) and reshaped back. The plane's counter
+    holds codeword indices below 2^32 (``rng.check_plane`` refuses more
+    columns). On a CUDA tensor the Philox kernel draws the plane (it
+    launches or raises); on the CPU its plain version does."""
+    return sample_clusters_from_uniform(cdf, _keyed_uniforms(key, bits), bits)
+
+
+def sample_llrs_with(
+    cdf: torch.Tensor, llrs: torch.Tensor, key: tuple[int, int], bits: torch.Tensor
+) -> torch.Tensor:
+    """Float32 LLR of the clusters :func:`sample_clusters_with` draws."""
+    return llrs[sample_clusters_with(cdf, key, bits)]
+
+
+class AWGNChannelQuantizer:
+    """The quantizer's operations bound to its tables on one device.
+
+    ``tables`` are the host tables, ``cardinality_t`` their |T|,
+    ``device`` the ``torch.device`` and ``device_tables`` the float32 tables
+    on it (the JAX class calls these tables ``device``). The device defaults
+    to ``cuda``, as every entry point of the port does.
+    A CPU tensor runs the plain functions; a CUDA tensor the same functions
+    on the card, the keyed draws on the Philox kernel. A tensor on another
+    device than the tables raises."""
+
+    def __init__(
+        self,
+        sigma2: float,
+        ad_max_abs: float = 3.0,
+        cardinality_t: int = 16,
+        cardinality_y: int = 2000,
+        device: torch.device | str = "cuda",
+    ):
+        self.tables = build_quantizer_tables(sigma2, ad_max_abs, cardinality_t, cardinality_y)
+        self.cardinality_t = self.tables.cardinality_t
+        self.device = torch.device(device)
+        self.device_tables = device_tables(self.tables, self.device)
+
+    def quantize(self, y: torch.Tensor) -> torch.Tensor:
+        return quantize_with(self.device_tables.limits, y)
+
+    def quantize_llr(self, y: torch.Tensor) -> torch.Tensor:
+        return quantize_llr_with(self.device_tables.limits, self.device_tables.llrs, y)
+
+    def sample_clusters(self, key: tuple[int, int], bits: torch.Tensor) -> torch.Tensor:
+        return sample_clusters_with(self.device_tables.cdf, key, bits)
+
+    def sample_llrs(self, key: tuple[int, int], bits: torch.Tensor) -> torch.Tensor:
+        return sample_llrs_with(self.device_tables.cdf, self.device_tables.llrs, key, bits)

@@ -54,6 +54,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+# Run by path, this file's directory comes first on sys.path, where the
+# queue's cli/queue.py would shadow the standard library's queue.
+if sys.path and Path(sys.path[0]).resolve() == Path(__file__).resolve().parent:
+    del sys.path[0]
+
 import torch
 
 TREE = Path(__file__).resolve().parents[2]

@@ -118,11 +118,16 @@ class DecoderConfig:
     def export_exit_chart(self, path: str, label: str = "") -> None:
         """EXIT-style MI trajectory chart (the reference's construction plot,
         Regular_LDPC_Decoding/BPSK/decoder_config_generation.py:42-61):
-        staircase of (I at check-node input, I at variable-node input)."""
-        import matplotlib
+        staircase of (I at check-node input, I at variable-node input).
+        Skipped, with a note, when matplotlib is missing."""
+        try:
+            import matplotlib
 
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            print(f"no matplotlib: the exit chart {path} is not written", flush=True)
+            return
 
         mi_cn = np.asarray(self.diagnostics["ext_mi_checknode_in"])
         mi_vn = np.asarray(self.diagnostics["ext_mi_varnode_in"])

@@ -1,4 +1,5 @@
-"""Decode layout, result type, and the plain IB, min-sum and BP decoders."""
+"""Decode layout, result type, the plain IB, min-sum and BP decoders, and
+factories that close over a layout and its tables."""
 
 from .bp import belief_propagation_decode
 from .common import (
@@ -11,6 +12,7 @@ from .common import (
     run_message_passing_loop,
     unsatisfied_checks,
 )
+from .factories import make_bp_decoder, make_ib_lut_decoder, make_min_sum_decoder
 from .float_common import float_decode
 from .graph_arrays import DecodeLayout, GroupSpec, LayoutTensors
 from .ib_lut import DeviceTrellis, ib_lut_decode
@@ -29,6 +31,9 @@ __all__ = [
     "gather_node_values_per_group",
     "group_planes",
     "ib_lut_decode",
+    "make_bp_decoder",
+    "make_ib_lut_decoder",
+    "make_min_sum_decoder",
     "min_sum_decode",
     "node_outputs_to_natural_order",
     "run_message_passing_loop",

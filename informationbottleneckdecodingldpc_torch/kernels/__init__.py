@@ -18,7 +18,12 @@ from .bulk_copies import BulkCopies
 from .bulk_read import BulkRead
 from .float_fused import FusedFloatDecoder, float_decode_tiled, pick_float_batch_tile
 from .float_hbm import HBMFloatDecoder
-from .ib_lut_fused import FusedIBDecoder, ib_lut_decode_tiled, pick_batch_tile
+from .ib_lut_fused import (
+    FusedIBDecoder,
+    ib_lut_decode_tiled,
+    make_fused_ib_decoder,
+    pick_batch_tile,
+)
 from .ib_lut_hbm import HBMFusedIBDecoder
 from .lut_columns import columns_chain
 from .stage_chunks import StageChunks
@@ -36,6 +41,7 @@ __all__ = [
     "columns_chain",
     "float_decode_tiled",
     "ib_lut_decode_tiled",
+    "make_fused_ib_decoder",
     "pick_batch_tile",
     "pick_float_batch_tile",
 ]

@@ -366,6 +366,12 @@ class FusedIBDecoder:
         )
 
 
+def make_fused_ib_decoder(layout: DecodeLayout, tables: TrellisTables, **kw) -> FusedIBDecoder:
+    """The :class:`FusedIBDecoder` of ``layout`` and ``tables`` (keywords as
+    its constructor's)."""
+    return FusedIBDecoder(layout, tables, **kw)
+
+
 @functools.cache
 def _library():
     """K1's library, built at first use."""

@@ -1,8 +1,10 @@
 """Result persistence: JSON, and optional .npz, .mat and plot exports.
 
 Port of ``sim/results.py`` with the same JSON keys, so the JAX package's
-``load_results`` and ``scripts/make_parity_report.py`` read the port's files
-as they stand. The sweep controller reloads the file to resume.
+``load_results`` reads the port's files as they stand. The sweep controller
+reloads the file to resume; ``cli/queue.py`` reopens a completed point of it
+and ``cli/parity_report.py`` reports its points (``scripts/make_parity_report.py``
+reads only the JAX package's ``results/ber/``).
 """
 
 from __future__ import annotations

@@ -236,7 +236,8 @@ def test_port_imports_without_jax():
             p + "parallel.mesh", p + "cli.dryrun", p + "cli.construct", p + "ib.sib",
             p + "construct.matching", p + "construct.density_evolution",
             p + "construct.density_evolution_irreg", p + "construct.awgn_dde",
-            p + "models.artifacts",
+            p + "models.artifacts", p + "cli.queue", p + "cli.parity_report",
+            p + "decode.factories",
         } <= set(names)
         print(len(names))
         """

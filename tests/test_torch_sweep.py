@@ -8,7 +8,7 @@ codeword); the JAX package's ``load_results`` reads the port's results
 file; the .npz and .mat exports hold the JAX keys; the CLI's
 ``--modulation`` parsing gives what the JAX CLI's does, and its usage errors
 the same messages; ``device_trace`` writes a Chrome trace. The committed
-16-QAM curve of the port (``results/torch/wlan_minsum_qam16.json``, made on
+16-QAM curve of the port (``results/torch/ber/wlan_minsum_qam16.json``, made on
 the card through the CLI) agrees with the JAX package's curve at every
 Eb/N0 both hold: FER within 3 standard deviations of the two binomial
 samples at their pooled rate (:func:`curve_rows` gives the table of
@@ -171,7 +171,7 @@ def curve_rows(port: str, reference: str) -> list[dict]:
 
 def test_qam16_curve_agrees_with_the_jax_curve():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    rows = curve_rows(os.path.join(root, "results/torch/wlan_minsum_qam16.json"),
+    rows = curve_rows(os.path.join(root, "results/torch/ber/wlan_minsum_qam16.json"),
                       os.path.join(root, "results/ber/wlan_minsum_qam16.json"))
     assert len(rows) == 36
     assert max(abs(r["fer_sigmas"]) for r in rows) < 3.0
