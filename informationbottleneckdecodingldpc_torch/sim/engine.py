@@ -43,6 +43,15 @@ encoded on the device. An M-ary step draws its info bits and a normal plane
 of 2 n_vars / k rows (row 2s + c is component c of symbol s), each a plane
 of that kernel; the map and the demap run as torch operators.
 
+While ``torch.profiler`` records, the engine marks its layers with ranges
+(``utils/profiling.py`` ``span``; one check each when nothing records):
+``sim.run_point`` holds a ``sim.dispatch`` per dispatch, which holds the
+dispatch's ``sim.step`` ranges and its ``sim.readback`` (the counters'
+wait and copies to the host); a step holds ``sim.seed`` (its key),
+``sim.channel_input`` (the draws and the decoder's input, with
+``sim.encode`` inside it on the encoded chains), ``sim.decode`` and
+``sim.count``; a process group's all-reduce is ``sim.all_reduce``.
+
 Data parallelism (the JAX engine's ``shard_map`` path) is one process per
 card (``parallel/mesh.py``): in a process group of ``world`` ranks, rank r
 draws and decodes codewords [r B, (r + 1) B) of each step's global batch of
@@ -80,6 +89,7 @@ from ..kernels import float_fused, ib_lut_fused
 from ..kernels.float_hbm import HBMFloatDecoder
 from ..kernels.ib_lut_hbm import HBMFusedIBDecoder
 from ..parallel.mesh import make_mesh, psum_convergence_reduce
+from ..utils.profiling import span
 from . import rng
 
 # The decoder classes of each backend, IB then float.
@@ -384,13 +394,15 @@ class BERSimulator:
         return hard.sum(dim=0, dtype=torch.int32)
 
     def _decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor | None):
-        res = self.fused_decoder(channel_input)
-        errors = self._count_errors(res.outputs, bits)
-        return (
-            errors.sum(dtype=torch.int32),
-            (errors > 0).sum(dtype=torch.int32),
-            res.iterations.to(torch.float32),
-        )
+        with span("sim.decode"):
+            res = self.fused_decoder(channel_input)
+        with span("sim.count"):
+            errors = self._count_errors(res.outputs, bits)
+            return (
+                errors.sum(dtype=torch.int32),
+                (errors > 0).sum(dtype=torch.int32),
+                res.iterations.to(torch.float32),
+            )
 
     def channel_input_from_y(
         self, y: torch.Tensor, qt: DeviceQuantizerTables, sigma2: float
@@ -492,17 +504,20 @@ class BERSimulator:
         chain first draws its info bits and encodes them."""
         batch = self.batch_per_device
         codeword = None
-        if self.chain == "encoded":
-            info = rng.draw("bits", self._key, self._info_len, offset, batch, self.device)
-            codeword = self._encode(info)
-        if self.modulation != "bpsk":
-            rows = 2 * self.layout.n_vars // self._bits_per_symbol
-            noise = rng.draw("normal", self._key, rows, offset, batch, self.device)
-            return self._decode_and_count(self.mary_llrs(codeword, noise, sigma2), codeword)
-        channel_input = rng.channel_input(
-            self.channel_input_kind, self._key, self.layout.n_vars, offset, batch, self.device,
-            qt, sigma2, codeword,
-        )
+        with span("sim.channel_input"):
+            if self.chain == "encoded":
+                info = rng.draw("bits", self._key, self._info_len, offset, batch, self.device)
+                with span("sim.encode"):
+                    codeword = self._encode(info)
+            if self.modulation != "bpsk":
+                rows = 2 * self.layout.n_vars // self._bits_per_symbol
+                noise = rng.draw("normal", self._key, rows, offset, batch, self.device)
+                channel_input = self.mary_llrs(codeword, noise, sigma2)
+            else:
+                channel_input = rng.channel_input(
+                    self.channel_input_kind, self._key, self.layout.n_vars, offset, batch,
+                    self.device, qt, sigma2, codeword,
+                )
         return self._decode_and_count(channel_input, codeword)
 
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
@@ -513,9 +528,11 @@ class BERSimulator:
         sigma2 = self.sigma2_for(ebn0_db)
         e = f = it = None
         for j in range(self.steps_per_dispatch):
-            self._key = rng.key_words(step_seed(self.seed, ebn0_db, step_index + j))
-            de, df, dit = self._draw_step(qt, sigma2, self.offset)
-            e, f, it = (de, df, dit) if e is None else (e + de, f + df, it + dit)
+            with span("sim.step"):
+                with span("sim.seed"):
+                    self._key = rng.key_words(step_seed(self.seed, ebn0_db, step_index + j))
+                de, df, dit = self._draw_step(qt, sigma2, self.offset)
+                e, f, it = (de, df, dit) if e is None else (e + de, f + df, it + dit)
         return self._all_reduce(e, f, it / self.steps_per_dispatch)
 
     def _all_reduce(self, e: torch.Tensor, f: torch.Tensor, it: torch.Tensor):
@@ -525,8 +542,9 @@ class BERSimulator:
         are returned as they are."""
         if self.mesh.group is None:
             return e, f, it
-        total = self.mesh.all_reduce(torch.stack([e.double(), f.double(), it.double()]))
-        return total[0].long(), total[1].long(), total[2] / self.n_devices
+        with span("sim.all_reduce"):
+            total = self.mesh.all_reduce(torch.stack([e.double(), f.double(), it.double()]))
+            return total[0].long(), total[1].long(), total[2] / self.n_devices
 
     def sigma2_for(self, ebn0_db: float) -> float:
         """The noise variance at ``ebn0_db``, rounded to float32 as the JAX
@@ -566,47 +584,51 @@ class BERSimulator:
         persists it); with ``verbose`` a progress line is printed every
         ``progress_every`` steps. Steps are keyed by their index, so a
         resumed point counts what the uninterrupted one does."""
-        qt = self.quantizer_for(ebn0_db)
-        state = checkpoint or PointCheckpoint(
-            ebn0_db=float(ebn0_db), step_index=0, errors=0, frame_errors=0, blocks=0,
-            iters_sum=0.0,
-        )
-        blocks_per_dispatch = self.batch_total * self.steps_per_dispatch
-        start = time.time()
-        while state.errors < min_errors and state.blocks < max_blocks:
-            e, f, it = self._step(ebn0_db, state.step_index, qt)
-            state.errors += int(e)
-            state.frame_errors += int(f)
-            state.blocks += blocks_per_dispatch
-            state.iters_sum += float(it) * blocks_per_dispatch
-            state.step_index += self.steps_per_dispatch
-            if verbose and state.step_index % progress_every == 0:
-                elapsed = time.time() - start
-                ber = state.errors / max(state.blocks * self.prefix_len, 1)
-                rate = state.blocks * self.layout.n_vars / max(elapsed, 1e-9)
-                eta_min = ((min_errors * elapsed / max(state.errors, 1)) - elapsed) / 60
-                print(
-                    f"EbN0={ebn0_db:.2f} dB errors={state.errors} "
-                    f"BER~{ber:.3e} coded_bps={rate:.3e} eta_min={eta_min:.1f}",
-                    flush=True,
-                )
-            if on_progress is not None:
-                on_progress(state)
-        elapsed = time.time() - start
+        with span("sim.run_point"):
+            qt = self.quantizer_for(ebn0_db)
+            state = checkpoint or PointCheckpoint(
+                ebn0_db=float(ebn0_db), step_index=0, errors=0, frame_errors=0, blocks=0,
+                iters_sum=0.0,
+            )
+            blocks_per_dispatch = self.batch_total * self.steps_per_dispatch
+            start = time.time()
+            while state.errors < min_errors and state.blocks < max_blocks:
+                with span("sim.dispatch"):
+                    e, f, it = self._step(ebn0_db, state.step_index, qt)
+                    with span("sim.readback"):
+                        e, f, it = int(e), int(f), float(it)
+                state.errors += e
+                state.frame_errors += f
+                state.blocks += blocks_per_dispatch
+                state.iters_sum += it * blocks_per_dispatch
+                state.step_index += self.steps_per_dispatch
+                if verbose and state.step_index % progress_every == 0:
+                    elapsed = time.time() - start
+                    ber = state.errors / max(state.blocks * self.prefix_len, 1)
+                    rate = state.blocks * self.layout.n_vars / max(elapsed, 1e-9)
+                    eta_min = ((min_errors * elapsed / max(state.errors, 1)) - elapsed) / 60
+                    print(
+                        f"EbN0={ebn0_db:.2f} dB errors={state.errors} "
+                        f"BER~{ber:.3e} coded_bps={rate:.3e} eta_min={eta_min:.1f}",
+                        flush=True,
+                    )
+                if on_progress is not None:
+                    on_progress(state)
+            elapsed = time.time() - start
 
-        bits_counted = state.blocks * self.prefix_len
-        coded_bits = state.blocks * self.layout.n_vars
-        info_bits = state.blocks * self.layout.data_len
-        return PointResult(
-            ebn0_db=float(ebn0_db),
-            ber=state.errors / max(bits_counted, 1),
-            fer=state.frame_errors / max(state.blocks, 1),
-            errors=state.errors,
-            frame_errors=state.frame_errors,
-            blocks=state.blocks,
-            bits_counted=bits_counted,
-            elapsed_s=elapsed,
-            coded_bits_per_s=coded_bits / max(elapsed, 1e-9),
-            info_bits_per_s=info_bits / max(elapsed, 1e-9),
-            mean_iterations=state.iters_sum / max(state.blocks, 1),
-        )
+            bits_counted = state.blocks * self.prefix_len
+            coded_bits = state.blocks * self.layout.n_vars
+            info_bits = state.blocks * self.layout.data_len
+            return PointResult(
+                ebn0_db=float(ebn0_db),
+                ber=state.errors / max(bits_counted, 1),
+                fer=state.frame_errors / max(state.blocks, 1),
+                errors=state.errors,
+                frame_errors=state.frame_errors,
+                blocks=state.blocks,
+                bits_counted=bits_counted,
+                elapsed_s=elapsed,
+                coded_bits_per_s=coded_bits / max(elapsed, 1e-9),
+                info_bits_per_s=info_bits / max(elapsed, 1e-9),
+                mean_iterations=state.iters_sum / max(state.blocks, 1),
+            )
