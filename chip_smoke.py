@@ -993,10 +993,15 @@ def late_phases(dev, card: str, lap, builds: dict, main_counts, k3_ms_per_body: 
               f"GB/s of views, {r['bound_ms'] / r['ms_per_body']:.1%} of the view-traffic bound, "
               f"K3 {replay['k3_ms_per_body']:.4f} ms per body on {card}", flush=True)
     exact = next(r["ms_per_body"] for r in replay["variants"] if r["name"] == "exact")
-    folds = replay["k3_ms_per_body"] - exact
-    print(f"[29 folds] K3's body {replay['k3_ms_per_body']:.4f} ms less P6 exact's {exact:.4f} ms (its "
-          f"memory pattern without the folds): the folds' share {folds:.4f} ms, "
-          f"{folds / replay['k3_ms_per_body']:.1%} of K3's body on {card}", flush=True)
+    if replay["k3_view_bits"] == 8:
+        folds = replay["k3_ms_per_body"] - exact
+        print(f"[29 folds] K3's body {replay['k3_ms_per_body']:.4f} ms less P6 exact's {exact:.4f} ms "
+              f"(its memory pattern without the folds): the folds' share {folds:.4f} ms, "
+              f"{folds / replay['k3_ms_per_body']:.1%} of K3's body on {card}", flush=True)
+    else:  # P6 replays byte views: its difference to a packed K3 is not the folds'
+        print(f"[29 folds] not taken: K3 ran {replay['k3_view_bits']}-bit views "
+              f"({replay['k3_ms_per_body']:.4f} ms a body), P6 exact replays bytes ({exact:.4f} ms) "
+              f"on {card}", flush=True)
 
     for variant, numbers in p5_rows.items():
         record(f"stage_chunks_{variant}", "scripts/stage_probe.py:41", p5_counts.get(variant, 0),
@@ -2161,11 +2166,16 @@ def main() -> None:
 
     # -- 11: K3 and K4 build (started in phase 2) ---------------------------
     # Every wide instantiation: K3's per-lane CN/VN passes and its general
-    # ones, K4's per rule and degree range.
+    # ones, each on packed 4-bit and on byte views, with its seed and
+    # decision; K4's per rule and degree range.
     ranges = {0: "low degrees", 1: "high degrees"}
+    widths = {4: "packed 4-bit", 8: "byte"}
     hbm_names = {
-        "ib_lut_hbm": {**{f"{p}_kernelILb1E": f"{p} 8 B per-lane tables" for p in ("cn", "vn")},
-                       **{f"{p}_kernelILb0E": f"{p} general 4 B" for p in ("cn", "vn")}},
+        "ib_lut_hbm": {**{f"{p}_kernelILb{lanes}ELi{bits}EE":
+                          f"{p} {w} {'8 columns per-lane tables' if lanes else 'general 4 columns'}"
+                          for p in ("cn", "vn") for lanes in (1, 0) for bits, w in widths.items()},
+                       **{f"{p}_kernelILi{bits}EE": f"{p} {w}"
+                          for p in ("seed", "decide") for bits, w in widths.items()}},
         "float_hbm": {**{f"cn_kernelILi{k}ELb{h}E": f"cn {rule} {r}" for k, rule in enumerate(("minsum", "bp"))
                          for h, r in ranges.items()},
                       **{f"vn_kernelILb{h}E": f"vn {r}" for h, r in ranges.items()}},
@@ -2186,6 +2196,10 @@ def main() -> None:
         configs[name] = DecoderConfig.load(str(CONFIG_DIR / f"{name}.npz"))
     k3_err = 0
     k3_cases = [  # (code, layout, config, Eb/N0, batch, early exit, tile or None: 128)
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 128, True, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 128, False, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 1024, True, None),
+        ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 1024, False, None),
         ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, True, None),
         ("dvbs2", dv_layout, "dvbs2_T16_0.6", 1.0, 256, False, None),
         ("dvbs2", dv_layout, "dvbs2_T16_0.8", DV_EXIT_DB, 512, True, None),
@@ -2215,9 +2229,15 @@ def main() -> None:
             )
         if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
             raise AssertionError(f"K3's early exit did not fire at {ebn0} dB")
+        t = configs[name].tables
+        bits = 4 if max(t.cardinality_t_channel, t.cardinality_t_decoder) <= 16 else 8
+        if dec.view_bits != bits or dec.packed_launches != (dec.launches if bits == 4 else 0):
+            raise AssertionError(f"K3 on {name} ran {dec.view_bits}-bit views, {dec.packed_launches} "
+                                 f"of {dec.launches} decodes packed; want {bits}-bit views")
         print(f"[12 exact] K3 {name} {ebn0} dB early_exit={early_exit} batch {batch} tile "
-              f"{dec.batch_tile}: outputs, unsatisfied and mean iterations "
-              f"{float(got.iterations):.4f} equal", flush=True)
+              f"{dec.batch_tile}, {bits}-bit views ({dec.packed_launches} of {dec.launches} decodes "
+              f"packed): outputs, unsatisfied and mean iterations {float(got.iterations):.4f} equal",
+              flush=True)
     lap(12)
 
     # -- 13: K4 vs plain twin ------------------------------------------------
@@ -2618,7 +2638,7 @@ def main() -> None:
         line = (f"[20 bound] {name} at batch {batch}, {bodies:.2f} bodies: I/O {b['io_ms']:.4f} ms, "
                 f"compute {b['compute_ms']:.4f} ms (busiest {b['busiest']})")
         if "hbm" in name:
-            traffic = roofline.view_bytes_per_body(lay, decoder_name) * bodies * batch / matrix_bw
+            traffic = roofline.view_bytes_per_body(lay, decoder_name, tables) * bodies * batch / matrix_bw
             line += f", view traffic {traffic * 1e3:.3f} ms at the copy bandwidth"
         print(line + f" on {card}", flush=True)
     lap(20)

@@ -17,12 +17,18 @@
 // width (K3: 4 bytes; K4 BP: the 4 columns of its CN folds in a loop), so
 // that the folds of degrees up to 16, unrolled per column, stay small enough
 // for ptxas.
+//
+// K3 keeps its views at 8 or 4 bits a message (Bytes or Nibbles): at 4 bits
+// a row of bt columns is bt / 2 bytes, column 2k in the low nibble of byte k
+// and column 2k + 1 in its high nibble, so V columns move as one V / 2-byte
+// access and the folds see the same per-column values through get and put.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace hbm_wide {
 
@@ -84,7 +90,61 @@ struct Bytes {
   }
   // Sets byte j of a cleared row.
   __device__ __forceinline__ void put(int j, uint8_t b) { w[j / 4] |= uint32_t(b) << (8 * (j % 4)); }
+  __device__ __forceinline__ void xor_with(const Bytes& o) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) w[i] ^= o.w[i];
+  }
 };
+
+// V consecutive 4-bit elements of a packed view row (V = 4 or 8), held in
+// the low V * 4 bits of a word: column j at bits 4j .. 4j + 3.
+template <int V>
+struct Nibbles {
+  static_assert(V == 4 || V == 8, "4 or 8 columns per access");
+  uint32_t w;
+
+  // Read-only for the whole launch: the non-coherent path is safe.
+  __device__ __forceinline__ void load(const uint8_t* p) {
+    if constexpr (V == 4)
+      w = __ldg(reinterpret_cast<const unsigned short*>(p));
+    else
+      w = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+  __device__ __forceinline__ void store(uint8_t* p) const {
+    if constexpr (V == 4)
+      *reinterpret_cast<unsigned short*>(p) = static_cast<unsigned short>(w);
+    else
+      *reinterpret_cast<unsigned int*>(p) = w;
+  }
+  __device__ __forceinline__ void clear() { w = 0; }
+  // Column j (j a compile-time constant after unrolling).
+  __device__ __forceinline__ uint8_t get(int j) const { return uint8_t((w >> (4 * j)) & 15u); }
+  // Sets column j of a cleared row to b < 16 (an add: the nibbles do not
+  // overlap, so one shift-and-add).
+  __device__ __forceinline__ void put(int j, uint8_t b) { w += uint32_t(b) << (4 * j); }
+  __device__ __forceinline__ void xor_with(const Nibbles& o) { w ^= o.w; }
+};
+
+// The row type of V columns of BITS-bit messages (8: Bytes, 4: Nibbles).
+template <int V, int BITS>
+using Row = std::conditional_t<BITS == 4, Nibbles<V>, Bytes<V>>;
+
+// Bytes of `columns` columns of BITS-bit messages (columns even at 4 bits).
+template <int BITS>
+__host__ __device__ __forceinline__ int row_bytes(int columns) {
+  static_assert(BITS == 4 || BITS == 8, "4 or 8 bits a message");
+  return BITS == 8 ? columns : columns >> 1;
+}
+
+// Element i of a view of BITS-bit messages laid out as above, i = row * bt +
+// column (bt even, so the column's parity is i's).
+template <int BITS>
+__device__ __forceinline__ uint8_t element(const uint8_t* v, int i) {
+  if constexpr (BITS == 8)
+    return v[i];
+  else
+    return uint8_t((v[i >> 1] >> (4 * (i & 1))) & 15);
+}
 
 // Component j of a float4 (j a compile-time constant after unrolling).
 __device__ __forceinline__ float& lane(float4& v, int j) { return (&v.x)[j]; }

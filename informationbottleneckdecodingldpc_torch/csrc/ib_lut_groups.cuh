@@ -1,10 +1,10 @@
 // Node folds of the IB lookup-table decoder, shared by K1 (ib_lut_fused.cu,
 // both views in shared memory) and K3 (ib_lut_hbm.cu, both views in device
-// memory), with K3's decision pass.
+// memory).
 //
-// A view is [row][bt] bytes: row r of codeword column c at r * bt + c, so a
-// caller hands in the base of one tile's slab wherever it lives; each kernel
-// walks its own items (K1 flat over the degree groups, four columns per
+// A view is [row][bt] messages: row r of codeword column c at r * bt + c, a
+// byte each (K3 packs two a byte at |T| <= 16, hbm_wide.cuh); the folds take
+// and give one message per column, and each kernel walks its own items (K1 flat over the degree groups, four columns per
 // thread; K3 a grid-wide stride). Every node output is a strict
 // left-to-right fold of its inputs with the own edge removed, step p through
 // pairwise LUT p-1 indexed lut[state][next] (ops/lut_fold.py). The tables
@@ -107,49 +107,7 @@ __device__ __forceinline__ void vn_fold(uint8_t ch, const uint8_t (&m)[D], uint8
   out[0] = s0;
 }
 
-template <int D>
-__device__ void decide_group(const uint8_t* __restrict__ src,
-                             const uint8_t* __restrict__ chg, Luts lut,
-                             const int32_t* __restrict__ node_var,
-                             int32_t* __restrict__ outputs, int off, int n,
-                             int node_off, int bt, int b0, int batch, int first,
-                             int step) {
-  const int items = n * bt;
-  for (int t = first; t < items; t += step) {
-    const int node = t / bt;
-    const int c = t - node * bt;
-    if (b0 + c >= batch) continue;
-    uint8_t s = lut(0, chg[(node_off + node) * bt + c], src[(off + node) * bt + c]);
-#pragma unroll
-    for (int k = 1; k < D; ++k) s = lut(k, s, src[(off + k * n + node) * bt + c]);
-    outputs[size_t(__ldg(&node_var[node_off + node])) * batch + b0 + c] = s;
-  }
-}
-
 #define IB_DEGREES_2_TO_16(X) \
   X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16)
-#define IB_DEGREES_1_TO_16(X) X(1) IB_DEGREES_2_TO_16(X)
-
-// Decision fold of every variable node, written to outputs[var][batch] at
-// columns b0 + c < batch.
-__device__ inline void decide_pass(const Graph& g, const uint8_t* src, const uint8_t* chg,
-                                   Luts lut, int32_t* outputs, int b0, int batch,
-                                   int first, int step) {
-  for (int k = 0; k < g.n_vn_groups; ++k) {
-    const int off = g.vn_groups[4 * k], n = g.vn_groups[4 * k + 1];
-    const int d = g.vn_groups[4 * k + 2], node_off = g.vn_groups[4 * k + 3];
-    switch (d) {
-#define IB_DEC_CASE(D)                                                                \
-  case D:                                                                             \
-    decide_group<D>(src, chg, lut, g.node_var, outputs, off, n, node_off, g.bt, b0,   \
-                    batch, first, step);                                              \
-    break;
-      IB_DEGREES_1_TO_16(IB_DEC_CASE)
-#undef IB_DEC_CASE
-      default:
-        __trap();
-    }
-  }
-}
 
 }  // namespace ib_lut

@@ -310,10 +310,10 @@ def measure_stage(device: torch.device | str = "cuda") -> list[dict]:
     return out
 
 
-def k3_ms_per_body(layout, batch: int, device: torch.device) -> float:
+def k3_ms_per_body(layout, batch: int, device: torch.device) -> tuple[float, int]:
     """K3's ms per body on ``layout``: one decode of random clusters at
     ``batch``, early exit off, timed by CUDA events over 3 decodes after a
-    warm-up, over its i_max - 1 bodies."""
+    warm-up, over its i_max - 1 bodies; and the bits a message of its views."""
     tables = DecoderConfig.load(str(CONFIG_DIR / f"{REPLAY_CONFIG}.npz")).tables
     dec = HBMFusedIBDecoder(layout, tables, early_exit=False)
     g = torch.Generator(device=device)
@@ -327,12 +327,13 @@ def k3_ms_per_body(layout, batch: int, device: torch.device) -> float:
         dec(clusters)
     stop.record()
     stop.synchronize()
-    return start.elapsed_time(stop) / 3 / (dec.imax - 1)
+    return start.elapsed_time(stop) / 3 / (dec.imax - 1), dec.view_bits
 
 
 def measure_replay(device: torch.device | str = "cuda") -> dict:
     """P6: ms per body, view bytes/s and the fraction of the view-traffic
-    bound of every variant, and K3's ms per body beside them."""
+    bound of every variant, and K3's ms per body and view bits beside them
+    (P6 replays byte views, so only K3 on bytes runs its memory pattern)."""
     device = _cuda(device)
     layout = get_model(REPLAY_MODEL).make_layout()
     views = p6.ReplayViews.random(layout, REPLAY_BATCH, device)
@@ -352,6 +353,7 @@ def measure_replay(device: torch.device | str = "cuda") -> dict:
                                 "bytes_per_body": moved, "ms_per_body": ms, "bytes_per_s": rate,
                                 "bound_ms": bound_ms})
     del views
-    out["k3_ms_per_body"] = k3_ms_per_body(layout, REPLAY_BATCH, device)
-    print(f"K3 (dvbs2_T16_0.6, early exit off): {out['k3_ms_per_body']:.4f} ms/body", flush=True)
+    out["k3_ms_per_body"], out["k3_view_bits"] = k3_ms_per_body(layout, REPLAY_BATCH, device)
+    print(f"K3 ({REPLAY_CONFIG}, early exit off, {out['k3_view_bits']}-bit views): "
+          f"{out['k3_ms_per_body']:.4f} ms/body", flush=True)
     return out

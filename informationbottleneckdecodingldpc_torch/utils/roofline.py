@@ -17,9 +17,10 @@ what a fraction of the JAX matrix meant:
 - BP: the check nodes' box-plus applications over the box-plus peak;
 - min-sum: 4 ops per check-node edge against 7 x the min-sum op peak;
 - traffic, for a cell on ``backend='hbm'``: the view bytes per codeword and
-  body of the kernel that runs (K3: both uint8 views read and written and the
-  channel plane read, 4 n_edges + n_vars; K4: 16 n_edges, as ``:440``
-  counts the float32 views) over the copy bandwidth.
+  body of the kernel that runs (K3: both views read and written and the
+  channel plane read, 4 n_edges + n_vars messages at a byte, or half a byte
+  where its tables give |T| <= 16; K4: 16 n_edges, as ``:440`` counts the
+  float32 views) over the copy bandwidth.
 
 Every bound takes the measured mean iteration count as i_eff.
 
@@ -43,6 +44,7 @@ import torch
 from ..construct.trellis import TrellisTables
 from ..decode.graph_arrays import DecodeLayout
 from ..kernels import hbm_copy, philox_planes
+from ..kernels.ib_lut_hbm import view_bits
 from .peaks import _cuda, differenced_rate, lookup2d_peak
 
 # NVIDIA H100 SXM data sheet: 132 SMs at a 1.98 GHz boost clock and device
@@ -194,11 +196,16 @@ def cn_edges(layout: DecodeLayout) -> int:
     return sum(g.num_nodes * g.degree for g in layout.cn_groups if g.degree >= 2)
 
 
-def view_bytes_per_body(layout: DecodeLayout, decoder: str) -> int:
-    """Device-memory view traffic of one body per codeword of K3 (IB) or K4
-    (float), as the traffic bound counts it."""
+def view_bytes_per_body(
+    layout: DecodeLayout, decoder: str, tables: TrellisTables | None = None
+) -> float:
+    """Device-memory view traffic of one body per codeword of K3 (IB: both
+    views read and written once and the channel plane read, at the bits a
+    message that ``tables`` give K3, :func:`~..kernels.ib_lut_hbm.view_bits`)
+    or K4 (float32), as the traffic bound counts it."""
     if decoder == "ib":
-        return 4 * layout.n_edges + layout.n_vars
+        bits = view_bits(tables.cardinality_t_channel, tables.cardinality_t_decoder)
+        return (4 * layout.n_edges + layout.n_vars) * bits / 8
     return 16 * layout.n_edges
 
 
@@ -243,7 +250,7 @@ def cell_roofline(
             "min_ops_per_edge": MINSUM_OPS_PER_CN_EDGE,
         }
     if backend == "hbm":
-        per_body = view_bytes_per_body(layout, decoder)
+        per_body = view_bytes_per_body(layout, decoder, tables)
         traffic_sol = bandwidth * layout.n_vars / (per_body * i_eff)
         if traffic_sol < sol:
             sol = traffic_sol

@@ -60,6 +60,7 @@ from informationbottleneckdecodingldpc_torch.kernels import (
 from informationbottleneckdecodingldpc_torch.kernels.ib_lut_hbm import (
     check_view_tile,
     tile_scratch,
+    view_bits,
 )
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
@@ -208,7 +209,7 @@ def test_hbm_ib_twin_matches_jax_kernel(ira, qc96, code, batch, reliable, early_
     assert np.array_equal(got.outputs.numpy(), np.asarray(want.outputs))
     assert np.array_equal(got.unsatisfied.numpy(), np.asarray(want.unsatisfied))
     assert float(got.iterations) == float(want.iterations)
-    assert dec.launches == 0  # the CPU twin launches no kernel
+    assert dec.launches == dec.packed_launches == 0  # the CPU twin launches no kernel
     if early_exit:
         assert float(got.iterations) < tables.i_max - 1  # the exit fired
 
@@ -302,12 +303,101 @@ def test_hbm_launch_refuses_before_the_card(dvbs2, qc96):
         wide._launch(torch.zeros((64800, 4), device="meta"))
 
 
-def test_tile_scratch_shapes(qc96):
+@pytest.mark.parametrize(
+    "dtype, t, row",
+    [
+        (torch.float32, None, 8),  # K4: float32 views
+        (torch.uint8, 16, 4),  # K3 at |T| = 16: two 4-bit columns a byte
+        (torch.uint8, 32, 8),  # K3 at |T| = 32: a byte a column
+    ],
+)
+def test_tile_scratch_shapes(qc96, dtype, t, row):
     layout = qc96["layout"]
-    a, b, chg, unsat, state = tile_scratch(layout, 20, 8, torch.float32, "cpu", zero_vn_view=True)
-    assert a.shape == b.shape == (3, layout.n_edges, 8) and a.dtype == torch.float32
-    assert chg.shape == (3, layout.n_vars, 8) and not b.any()
+    packed = t is not None and view_bits(t, t) == 4
+    a, b, chg, unsat, state = tile_scratch(
+        layout, 20, 8, dtype, "cpu", zero_vn_view=True, packed=packed
+    )
+    assert a.shape == b.shape == (3, layout.n_edges, row) and a.dtype == dtype
+    assert chg.shape == (3, layout.n_vars, row) and chg.dtype == dtype and not b.any()
     assert unsat.shape == (3, 8) and state.shape == (3, 2) and state.dtype == torch.int32
+
+
+@pytest.mark.parametrize(
+    "t_channel, t_decoder, bits",
+    [(16, 16, 4), (8, 16, 4), (8, 8, 4), (16, 32, 8), (32, 32, 8), (17, 17, 8)],
+)
+def test_k3_view_width_follows_the_tables(t_channel, t_decoder, bits):
+    """4 bits a message exactly when |T_ch| <= 16 and |T| <= 16."""
+    assert view_bits(t_channel, t_decoder) == bits
+
+
+@pytest.mark.parametrize(
+    "model, config, bits",
+    [("dvbs2-64800", "dvbs2_T16_0.6", 4), ("wlan-1296", "wlan_T16_0.8", 4),
+     ("wlan-1296", "wlan_T32_0.6", 8)],
+)
+def test_k3_decoder_takes_its_width_from_its_tables(dvbs2, model, config, bits):
+    layout = dvbs2[0] if model == "dvbs2-64800" else get_model(model).make_layout()
+    tables = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    dec = HBMFusedIBDecoder(layout, tables)
+    assert dec.view_bits == bits
+    assert dec.launches == dec.packed_launches == 0
+
+
+def pack_nibbles(x: torch.Tensor) -> torch.Tensor:
+    """K3's packed rows, plainly: uint8 values below 16 in ``[..., columns]``
+    -> ``[..., columns / 2]`` bytes, column 2k in the low nibble of byte k
+    and column 2k + 1 in its high nibble (``csrc/ib_lut_hbm.cu``)."""
+    return x[..., 0::2] | (x[..., 1::2] << 4)
+
+
+def unpack_nibbles(p: torch.Tensor) -> torch.Tensor:
+    return torch.stack((p & 15, p >> 4), dim=-1).flatten(-2)
+
+
+def test_packed_rows_hold_two_columns_a_byte():
+    """The layout of K3's 4-bit views: every pair of the 16 values round
+    trips, column 2k takes the low nibble of byte k and column 2k + 1 its
+    high nibble, so the V columns of a thread (``hbm_wide.cuh`` Nibbles) are
+    the little-endian word of its V / 2 bytes with column j at bits 4j."""
+    pairs = torch.cartesian_prod(torch.arange(16), torch.arange(16)).to(torch.uint8)
+    x = pairs.reshape(2, 256)  # rows of 256 columns
+    p = pack_nibbles(x)
+    assert p.shape == (2, 128) and p.dtype == torch.uint8
+    assert torch.equal(unpack_nibbles(p), x)
+    assert torch.equal(p.to(torch.int32), x[:, 0::2].to(torch.int32) + 16 * x[:, 1::2].to(torch.int32))
+    assert sorted(set(pack_nibbles(pairs.reshape(1, -1))[0].tolist())) == list(range(256))
+    row = torch.tensor([1, 2, 3, 4, 5, 6, 7, 8], dtype=torch.uint8)
+    assert pack_nibbles(row).tolist() == [0x21, 0x43, 0x65, 0x87]
+    for v in (4, 8):  # Nibbles<4>: one 16-bit access; Nibbles<8>: one 32-bit access
+        for chunk in x[0].reshape(-1, v):
+            word = int.from_bytes(bytes(pack_nibbles(chunk).tolist()), "little")
+            assert [(word >> (4 * j)) & 15 for j in range(v)] == chunk.tolist()
+
+
+@pytest.mark.parametrize("t", [2, 8, 16, 32, 12])
+def test_check_syndrome_from_one_xor_of_the_rows(t):
+    """K3's check-node syndrome where |T| is a power of two: the parity of
+    the inputs' hard decisions (t < |T| / 2) is bit |T| / 2 of their XOR,
+    flipped at odd degrees. At |T| = 12 it is not, so the kernel keeps the
+    per-message compare for such tables."""
+    rng = np.random.default_rng(t)
+    same = []
+    for d in range(2, 17):
+        m = rng.integers(0, t, (d, 256))
+        want = np.bitwise_xor.reduce(m < t // 2, axis=0)
+        got = (np.bitwise_xor.reduce(m, axis=0) & (t // 2) != 0) != (d % 2 == 1)
+        same.append(np.array_equal(got, want))
+    assert all(same) if t & (t - 1) == 0 else not any(same)
+
+
+def test_packed_launches_stay_zero_on_the_cpu_twin(qc96):
+    layout, tables = qc96["layout"], qc96["tables"]
+    dec = HBMFusedIBDecoder(layout, tables, batch_tile=8)
+    assert dec.view_bits == 4  # the card would pack these tables
+    got = dec(_clusters(False, (layout.n_vars, 16), seed=5))
+    assert got.outputs.shape == (layout.n_vars, 16)
+    assert dec.launches == dec.packed_launches == 0
 
 
 # -- the engine's backend ------------------------------------------------------

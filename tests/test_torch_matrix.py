@@ -301,9 +301,14 @@ def test_traffic_bound_applies_to_hbm_cells_with_the_kernels_view_bytes():
     assert k4["bound"] == "hbm_traffic"
     assert k4["speed_of_light_coded_mbps"] * 1e6 == pytest.approx(want, rel=1e-12)
     k3 = roofline.cell_roofline(dv, "ib", "hbm", 49.0, _fake_peak, bw, tables=_tables("dvbs2_T16_0.6"))
-    assert k3["view_bytes_per_body_per_codeword"] == 4 * 226799 + 64800
-    assert k3["hbm_traffic_sol_coded_mbps"] * 1e6 == pytest.approx(bw * 64800 / ((4 * 226799 + 64800) * 49.0), rel=1e-12)
+    # |T| = 16: K3's views hold two 4-bit messages a byte.
+    assert k3["view_bytes_per_body_per_codeword"] == (4 * 226799 + 64800) / 2
+    assert k3["hbm_traffic_sol_coded_mbps"] * 1e6 == pytest.approx(bw * 64800 / ((4 * 226799 + 64800) / 2 * 49.0), rel=1e-12)
     assert k3["speed_of_light_coded_mbps"] <= k3["hbm_traffic_sol_coded_mbps"]
+    # |T| = 32 stays on bytes.
+    wlan = get_model("wlan-1296").make_layout()
+    assert roofline.view_bytes_per_body(wlan, "ib", _tables("wlan_T32_0.6")) == 4 * 4644 + 1296
+    assert roofline.view_bytes_per_body(wlan, "ib", _tables("wlan_T16_0.8")) == (4 * 4644 + 1296) / 2
 
 
 def test_decode_bound_counts_one_read_one_write_and_the_lookups():
