@@ -249,6 +249,19 @@ the decoder factory and the results queue with its parity report.
     frame errors, blocks ``==``, mean iterations within 1e-9) to a straight
     run at 8192, and the report stage's ``PARITY.md`` with the card in its
     header; each run's seconds.
+40. the encoder kernel (``csrc/encoder.cu``) built: its registers and
+    spills; equal (``==``) to its plain version on the card, called twice
+    and again after its timing (the staircase path's state reused across
+    launches of a shape), at the cells' shapes and ragged ones
+    (:data:`ENCODER_CASES`: DVB-S2 N=64800 at 1024, 128, 200 and 7, WLAN at
+    512, 4096 and 200; the dense path's streamed rows at m = 4000 with a
+    random B^-1, the zoo's regular codes having a singular B); one launch a
+    call; each case's device time beside its bound (on the dense path the
+    product's AND-XORs beside the bytes) and the plain version's; a fresh
+    DVB-S2 encoder alternating batches 1024 and 128 past its 65th call
+    (:data:`ENCODER_SHAPE_RUNS`), each call equal to the plain version;
+    the engine's encoder launches, dense in phase 9 and staircase in phase
+    14 (one an encoded step), each path's count in its own kernels record.
 
 Each phase prints one line per check and its seconds; any failure raises and
 exits non-zero. The matrix's JSON goes to ``chiprun_out/BENCH_MATRIX.json``,
@@ -256,7 +269,8 @@ the probes' to ``chiprun_out/PROBES_{p1,p2_p3,p4,p5_p6}.json``.
 The last lines are the run's total seconds, the kernels' JSON record (the
 M-ary path's launches added to K2's, K4's and the planes', phases 35, 36 and
 38's ranks' and dispatches' to K1's, K4's and the channel input's, phase
-39's to K1's and the uniform plane's; phase 37's CLI ranks and phase 39's
+39's to K1's and the uniform plane's, phases 9, 14 and 40's to the
+encoder's; phase 37's CLI ranks and phase 39's
 queue processes report none), the card's name and power limit, and the
 device record.
 
@@ -304,6 +318,18 @@ K5_REPLACES = {
 }
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
+# Phase 40's (code, batch): the encoded cells' shapes (dvbs2_ib.enc_b1024,
+# dvbs2_ib.queue_enc128, wlan_ib.queue_enc512, phase 9's WLAN 4096) and
+# ragged ones (16- and 1-byte column words; a partial group of 32).
+# ENCODER_SHAPE_RUNS: a fresh DVB-S2 encoder's calls, alternating batches
+# whose staircase state lays its flags and carries out differently, past the
+# 65th call (epoch 64, whose flag tag 0x101 a carry word of 0/1 bytes can
+# spell), then one batch past epoch 64 of its own state.
+ENCODER_CASES = (
+    ("dvbs2-64800", 1024), ("dvbs2-64800", 128), ("dvbs2-64800", 200), ("dvbs2-64800", 7),
+    ("wlan-1296", 512), ("wlan-1296", 4096), ("wlan-1296", 200), ("random-dense-4000", 512),
+)
+ENCODER_SHAPE_RUNS = (1024, 128) * 40 + (1024,) * 70
 MARY_BATCH = 512  # scripts/queue.py's M-ary sweeps: batch 512 x 8 steps per dispatch
 MARY_DISPATCHES = 8  # 32768 blocks per M-ary point
 MARY_LLR_RTOL = 2e-6  # the demappers' tolerance of tests/test_torch_mary.py, of max(1, |ref|)
@@ -1730,6 +1756,80 @@ def api_queue_phase(dev, card: str, lap, layout) -> collections.Counter:
     return launched
 
 
+def encoder_phase(dev, card: str, lap, main_launches: dict[str, int]) -> list[dict]:
+    """Phase 40: the encoder kernel against its plain version at
+    :data:`ENCODER_CASES`, each timed (device time) beside its bound (the
+    info plane read once and the codeword written once; on the dense path
+    also the product's m ceil(m / 32) AND-XORs a codeword, one LOP3 each)
+    and the plain version's; then DVB-S2 through :data:`ENCODER_SHAPE_RUNS`,
+    each call against the plain version. ``main_launches`` counts the
+    engine's encoder launches by path in phases 9 (dense) and 14
+    (staircase). Returns the kernels' records of the staircase and dense
+    paths at the benchmark's shapes, each with its own main-path launches."""
+    import numpy as np
+
+    from informationbottleneckdecodingldpc_torch.codes.random_codes import regular_parity_check
+    from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder, device_encoder
+    from informationbottleneckdecodingldpc_torch.kernels import encoder as kernel
+    from informationbottleneckdecodingldpc_torch.kernels._build import load_library
+    from informationbottleneckdecodingldpc_torch.models import get_model
+    from informationbottleneckdecodingldpc_torch.sim import rng
+    from informationbottleneckdecodingldpc_torch.utils import roofline
+    from informationbottleneckdecodingldpc_torch.utils.peaks import device_ms
+
+    _, build = load_library("encoder")
+    print(f"[40 build] encoder.cu: nvcc {build['seconds']:.2f} s; {ptxas_lines(build['log'])}",
+          flush=True)
+    encoders = {name: device_encoder(LDPCEncoder(get_model(name).make_h()), dev)
+                for name in ("dvbs2-64800", "wlan-1296")}
+    A = regular_parity_check(8000, 3, 6, seed=0)[:, :4000].tocsr()
+    inverse = np.random.default_rng(40).integers(0, 2, (4000, 4000)).astype(np.uint8)
+    encoders["random-dense-4000"] = kernel.DeviceEncoder(4000, 8000, A.indptr, A.indices, inverse, dev)
+    key = rng.key_words(0x0123456789ABCDEF)
+    rows = {}
+    for name, batch in ENCODER_CASES:
+        enc = encoders[name]
+        info = rng.draw("bits", key, enc.k, 0, batch, dev)
+        before = enc.launches
+        got, again = enc(info), enc(info)
+        if enc.launches != before + 2:
+            raise AssertionError(f"{enc.launches - before} encoder launches for 2 calls")
+        want = enc.plain(info)
+        ms = device_ms(lambda: enc(info))
+        plain_ms = device_ms(lambda: enc.plain(info))
+        if not all(torch.equal(x, want) for x in (got, again, enc(info))):
+            raise AssertionError(f"the encoder kernel disagrees with its plain version on {name} at "
+                                 f"batch {batch} in {int((got != want).sum())} bits")
+        m = enc.n - enc.k
+        lop3 = 0 if enc.is_staircase else m * -(-m // 32) * batch
+        b = roofline.bound((enc.k + enc.n) * batch, {"logic": lop3})
+        print(f"[40 exact] {name} ({'staircase' if enc.is_staircase else 'dense B^-1'}), batch "
+              f"{batch}: equal to the plain version; kernel {ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}: bytes {b['io_ms']:.4f}, operations {b['compute_ms']:.4f}), "
+              f"{100 * b['bound_ms'] / ms:.1f}% of it; plain {plain_ms:.4f} ms on {card}", flush=True)
+        rows[name, batch] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+    enc = device_encoder(LDPCEncoder(get_model("dvbs2-64800").make_h()), dev)
+    planes = {batch: rng.draw("bits", key, enc.k, batch, batch, dev) for batch in set(ENCODER_SHAPE_RUNS)}
+    wants = {batch: enc.plain(info) for batch, info in planes.items()}
+    for i, batch in enumerate(ENCODER_SHAPE_RUNS):
+        got = enc(planes[batch])
+        if not torch.equal(got, wants[batch]):
+            bits = int((got != wants[batch]).sum())
+            raise AssertionError(f"the staircase kernel disagrees with its plain version at call {i} "
+                                 f"(batch {batch}) of the shape runs in {bits} bits")
+    print(f"[40 shapes] a fresh DVB-S2 encoder through {len(ENCODER_SHAPE_RUNS)} calls (batches 1024 "
+          "and 128 in turn 40 times, then 70 of 1024): each equal to the plain version", flush=True)
+    print(f"[40 launches] {sum(e.launches for e in encoders.values()) + enc.launches} by this phase's "
+          f"checks; by the engine, one an encoded step: {main_launches['dense']} dense in phase 9, "
+          f"{main_launches['staircase']} staircase in phase 14", flush=True)
+    lap(40)
+    replaces = "none: XLA (informationbottleneckdecodingldpc_tpu/encode/encoder.py device_encoder)"
+    return [{"name": f"encoder_{path}", "route": "cuda",
+             "source": "informationbottleneckdecodingldpc_torch/csrc/encoder.cu", "replaces": replaces,
+             "launches": main_launches[path], "max_abs_err": 0, "library_ms": None, **rows[case]}
+            for path, case in (("staircase", ("dvbs2-64800", 1024)), ("dense", ("wlan-1296", 512)))]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; none is available")
@@ -2103,6 +2203,8 @@ def main() -> None:
     ]
     philox_planes.launches.clear()
     expected = collections.Counter()
+    # The engine's encoder kernel by path, one launch an encoded step.
+    encoder_launches = {"staircase": 0, "dense": 0}
     for decoder_name, chain, source, ebn0, fer_ref, fer_band, ber_ref, ref_name in bands:
         kw = dict(max_iters=50)
         if decoder_name == "ib":
@@ -2116,6 +2218,10 @@ def main() -> None:
         )
         point = sim.run_point(ebn0, min_errors=10**12, max_blocks=32768)
         steps = point.blocks // sim.batch_total
+        if chain == "encoded":
+            if sim._encode.launches != steps:
+                raise AssertionError(f"{sim._encode.launches} encoder launches for {steps} steps")
+            encoder_launches["staircase" if sim._encode.is_staircase else "dense"] += sim._encode.launches
         expected.update({sim.channel_input_kind: steps, **({"bits": steps} if chain == "encoded" else {})})
         if source == "quantized":
             ok = abs(point.fer - fer_ref) <= fer_band and abs(point.ber - ber_ref) <= 0.15 * ber_ref
@@ -2321,6 +2427,10 @@ def main() -> None:
         steps += DV_DISPATCHES * sim.steps_per_dispatch
         if decoder.launches != steps:
             raise AssertionError(f"{decoder.launches} K3/K4 launches for {steps} steps")
+        if sim.chain == "encoded":
+            if sim._encode.launches != steps:
+                raise AssertionError(f"{sim._encode.launches} encoder launches for {steps} steps")
+            encoder_launches["staircase" if sim._encode.is_staircase else "dense"] += sim._encode.launches
         expected.update({sim.channel_input_kind: steps,
                          **({"bits": steps} if sim.chain == "encoded" else {})})
         if rate is not None:
@@ -2734,6 +2844,7 @@ def main() -> None:
             r["note"] = ("its launches are the keyed samplers' (phase 39a); every engine step draws "
                          "its plane in registers (channel_input_*)")
     print(f"[api] launches in phase 39: {json.dumps(dict(api))}", flush=True)
+    records += encoder_phase(dev, card, lap, encoder_launches)
     print(f"[total seconds] {time.perf_counter() - started:.1f}", flush=True)
     print(json.dumps({"kernels": [
         {k: r[k] for k in (*KERNEL_KEYS, "note") if k in r} for r in records

@@ -11,23 +11,23 @@ that needs their speed (the simulator encodes on the device), so it keeps
 the numpy path only.
 
 ``device_encoder`` is the port of ``LDPCEncoder.device_encoder``: it carries
-the host encoder's matrices to a torch device once.
+the host encoder's matrices to a torch device once, as the tables of
+``kernels/encoder.py`` ``DeviceEncoder`` (one kernel launch a call on the
+card, its plain version on the CPU):
 
 - s = A u over GF(2), as an XOR of gathered info bits per check;
 - staircase B (accumulator codes such as DVB-S2): p is the prefix XOR of s;
 - otherwise, for m = N - K <= 4096: p = B^-1 s with the dense GF(2) inverse
-  of B made once on the host. The product runs in float32: its entries are
-  0/1 and its sums at most m, all exact, even in TF32.
+  of B made once on the host.
 """
 
 from __future__ import annotations
-
-from typing import Callable
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..kernels.encoder import DENSE_INVERSE_MAX_CHECKS, DeviceEncoder
 from ..utils.bitpack import pack_bits, unpack_bits
 from .gf2 import gf2_factorize_packed, is_full_diag_triangular, is_staircase
 
@@ -169,26 +169,15 @@ def _gf2_dense_inverse(B: np.ndarray) -> np.ndarray | None:
     return inv
 
 
-DENSE_INVERSE_MAX_CHECKS = 4096
-
-
-def device_encoder(
-    enc: LDPCEncoder, device: torch.device | str
-) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Carry the host encoder's matrices to ``device``; the returned function
-    maps info bits [K, batch] (0/1, any integer type) to int8 codewords
-    [N, batch], systematic bits first. Raises when B has no device path."""
-    device = torch.device(device)
+def device_encoder(enc: LDPCEncoder, device: torch.device | str) -> DeviceEncoder:
+    """Carry the host encoder's matrices to ``device``; the returned
+    :class:`~..kernels.encoder.DeviceEncoder` maps info bits [K, batch] (0/1,
+    any integer type) to int8 codewords [N, batch], systematic bits first:
+    one kernel launch on a CUDA device, the plain version on the CPU. Raises
+    when B has no device path."""
     k, m = enc.k, enc.n - enc.k
     A = sp.csr_matrix(enc.H[:, :k])
-    row_deg = np.diff(A.indptr)
-    # Each check's info columns, padded with index K (a row of zeros).
-    cols = np.full((m, int(row_deg.max())), k, dtype=np.int64)
-    for r in range(m):
-        cols[r, : row_deg[r]] = A.indices[A.indptr[r] : A.indptr[r + 1]]
-    cols_t = torch.as_tensor(cols.T.copy(), device=device)  # [max_deg, m]
-
-    binv = None
+    inv = None
     if not enc.is_staircase:
         if m > DENSE_INVERSE_MAX_CHECKS:
             raise ValueError(
@@ -197,22 +186,4 @@ def device_encoder(
         inv = _gf2_dense_inverse(enc.B.toarray().astype(np.uint8))
         if inv is None:
             raise ValueError("B is singular over GF(2)")
-        binv = torch.as_tensor(inv.astype(np.float32), device=device)
-
-    def encode(info: torch.Tensor) -> torch.Tensor:
-        u = info.to(torch.int8)
-        u_pad = torch.cat([u, u.new_zeros((1, u.shape[1]))])
-        s = u_pad[cols_t[0]]
-        for c in cols_t[1:]:
-            s = s ^ u_pad[c]
-        if binv is None:
-            # Scanned along the contiguous dimension: torch's scan over the
-            # outer one walks each column's m rows in sequence (11.9 ms for
-            # DVB-S2 at batch 1024 on an H100).
-            scan = torch.cumsum(s.t().contiguous(), dim=1, dtype=torch.int32)
-            parity = scan.t() & 1
-        else:
-            parity = (binv @ s.to(torch.float32)).to(torch.int32) & 1
-        return torch.cat([u, parity.to(torch.int8)])
-
-    return encode
+    return DeviceEncoder(k, enc.n, A.indptr, A.indices, inv, device)

@@ -7,8 +7,8 @@ on CUDA cores and tensor cores (P1, ``lut_columns``), reads staged by bulk
 copies (P2/P3, ``bulk_read``), the cost of a bulk copy and of a wait
 (P4, ``bulk_copies``), the staged 7-plane skeleton of a decode iteration
 (P5, ``stage_chunks``) and K3's pass program with the folds replaced (P6,
-``stage_replay``); and the Monte-Carlo engine's Philox random planes
-(``philox_planes``).
+``stage_replay``); the Monte-Carlo engine's Philox random planes
+(``philox_planes``); and the encoded chain's encoder (``encoder``).
 
 Importing this package builds nothing: a kernel is compiled and loaded at its
 first launch on a CUDA tensor (``_build.load_library``).
