@@ -334,6 +334,11 @@ MARY_BATCH = 512  # scripts/queue.py's M-ary sweeps: batch 512 x 8 steps per dis
 MARY_DISPATCHES = 8  # 32768 blocks per M-ary point
 MARY_LLR_RTOL = 2e-6  # the demappers' tolerance of tests/test_torch_mary.py, of max(1, |ref|)
 PSK_POINTS = (3.0, 3.5)  # Eb/N0 (dB) of the 8-PSK points: the curve's waterfall
+# Phase 33's landmarks in a step's kernels: the Philox kernel that opens its
+# channel input, and the decode kernels (K1, K2 and the passes of K3 and K4).
+DRAW_KERNEL = "channel_input_kernel"
+DECODE_KERNELS = ("ib_lut_fused_kernel", "float_fused_kernel", "seed_kernel", "cn_kernel",
+                  "vn_kernel", "syndrome_kernel", "decide_kernel")
 PROBE_LIBRARIES = ("lut_columns", "bulk_read", "bulk_copies")
 K5C_LOOPS = {  # float op -> (K5c chain kernel's mangled name, fminf per application)
     "minsum_op": ("float_pair_kernelINS_8MinSumOp", 1), "boxplus": ("float_pair_kernelINS_7BoxPlus", 1),
@@ -1276,7 +1281,6 @@ def mary_profile(bps: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from informationbottleneckdecodingldpc_torch.channel.demap import demap_llrs
-    from informationbottleneckdecodingldpc_torch.utils.benchmarks import DRAW_KERNEL
     from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
     from informationbottleneckdecodingldpc_torch.models import get_model
     from informationbottleneckdecodingldpc_torch.sim import BERSimulator, rng
@@ -1342,8 +1346,6 @@ def _attribute(kernels: list[tuple[str, float]], n_map: int, n_demap: int, ms: d
     empty list."""
     if not kernels:
         return 0
-    from informationbottleneckdecodingldpc_torch.utils.benchmarks import DECODE_KERNELS, DRAW_KERNEL
-
     draws = [i for i, (n, _) in enumerate(kernels) if DRAW_KERNEL in n]
     decode = [i for i, (n, _) in enumerate(kernels) if any(k in n for k in DECODE_KERNELS)]
     if len(draws) != 2 or len(decode) != 1 or decode[0] - draws[1] - 1 < n_map + n_demap:
@@ -1388,7 +1390,7 @@ def rank_main(argv: list[str]) -> None:
     from informationbottleneckdecodingldpc_torch.parallel import initialize_multihost
     from informationbottleneckdecodingldpc_torch.sim import BERSimulator
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
-        build_dvbs2_sim, build_headline_sim, measure_sim_throughput)
+        build_headline_sim, build_matrix_sim, measure_sim_throughput)
 
     p = argparse.ArgumentParser()
     p.add_argument("job", choices=["nccl", "gloo-pair", "cli"])
@@ -1421,7 +1423,7 @@ def rank_main(argv: list[str]) -> None:
     else:
         sims = {
             "headline": (build_headline_sim(dev, n_devices=None), 0.8),
-            "dvbs2_minsum": (build_dvbs2_sim("dvbs2_minsum", dev, n_devices=None), 1.0),
+            "dvbs2_minsum": (build_matrix_sim("dvbs2_minsum", dev, n_devices=None)[0], 1.0),
             "xla_minsum": (BERSimulator(
                 get_model("wlan-1296").make_layout(), "minsum", device=dev, max_iters=50,
                 backend="xla", batch_per_device=256, n_devices=None, seed=0,
@@ -1447,14 +1449,14 @@ def launch(world: int, *args: str) -> str:
     return run_ranks(world, [__file__, "--rank", *args], RANK_TIMEOUT)
 
 
-def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> collections.Counter:
+def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_codes) -> collections.Counter:
     """Phases 35-38: data-parallel decoding over ``torch.distributed`` (one
     rank under NCCL; two ranks sharing the card over gloo, against one
     process at the global batch), the multi-process CLI's resume broadcast,
     the dry run, and the port's decoder construction rebuilding the
     committed configs on this host. ``headline`` holds phase 4's dispatch
-    counters and rate. Returns the ranks' launches per kernel (K1, K4 and
-    the channel-input kinds)."""
+    counters and rate, ``dv_codes`` the DVB-S2 code's (H, layout, encoder).
+    Returns the ranks' launches per kernel (K1, K4 and the channel-input kinds)."""
     import os
 
     import numpy as np
@@ -1463,7 +1465,7 @@ def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> c
     from informationbottleneckdecodingldpc_torch.decode import DeviceTrellis
     from informationbottleneckdecodingldpc_torch.sim import BERSimulator
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
-        COMMITTED_CONFIGS, CONFIG_DIR, build_dvbs2_sim, build_headline_sim,
+        COMMITTED_CONFIGS, CONFIG_DIR, build_headline_sim, build_matrix_sim,
         rebuild_committed_config)
 
     # The ranks import the package from this checkout, wherever they start.
@@ -1504,8 +1506,8 @@ def parallel_phases(dev, card: str, lap, headline: dict, layout, dv_layout) -> c
     pair = rank_outputs("gloo-pair", 2)
     refs = {
         "headline": (build_headline_sim(dev, batch_per_device=8192), 0.8),
-        "dvbs2_minsum": (build_dvbs2_sim("dvbs2_minsum", dev, layout=dv_layout,
-                                         batch_per_device=2048), 1.0),
+        "dvbs2_minsum": (build_matrix_sim("dvbs2_minsum", dev, dv_codes,
+                                          batch_per_device=2048)[0], 1.0),
         "xla_minsum": (BERSimulator(layout, "minsum", device=dev, max_iters=50, backend="xla",
                                     batch_per_device=512, seed=0, steps_per_dispatch=4),
                        PAIR_XLA_DB),
@@ -1880,14 +1882,12 @@ def main() -> None:
     from informationbottleneckdecodingldpc_torch.kernels._build import load_library
     from informationbottleneckdecodingldpc_torch.models import get_model
     from informationbottleneckdecodingldpc_torch.sim import BERSimulator
-    from informationbottleneckdecodingldpc_torch.sim.engine import received_plane
+    from informationbottleneckdecodingldpc_torch.channel.awgn import received_plane
     from informationbottleneckdecodingldpc_torch.utils.benchmarks import (
         CONFIG_DIR,
-        DVBS2_SCENARIOS,
-        FLOAT_SCENARIOS,
-        build_dvbs2_sim,
-        build_float_sim,
+        MATRIX,
         build_headline_sim,
+        build_matrix_sim,
         measure_sim_throughput,
     )
     from informationbottleneckdecodingldpc_torch.utils import peaks, roofline
@@ -2170,21 +2170,20 @@ def main() -> None:
 
     # -- 8: the float cells ------------------------------------------------
     k2_launches = {}
-    for name in FLOAT_SCENARIOS:
-        sc = FLOAT_SCENARIOS[name]
-        sim = build_float_sim(name, dev)
+    for name in ("wlan_minsum", "wlan_bp_quant"):
+        sim, ebn0, _ = build_matrix_sim(name, dev)
         decoder = sim.fused_decoder
         decoder.launches = 0
-        rate = measure_sim_throughput(sim, sc["ebn0_db"])
+        rate = measure_sim_throughput(sim, ebn0)
         timed_steps = (1 + 6) * sim.steps_per_dispatch
-        point = sim.run_point(sc["ebn0_db"], min_errors=10**12, max_blocks=32768)
-        k2_launches[sc["decoder"]] = decoder.launches
+        point = sim.run_point(ebn0, min_errors=10**12, max_blocks=32768)
+        k2_launches[sim.decoder] = decoder.launches
         steps = timed_steps + point.blocks // sim.batch_total
         if decoder.launches != steps:
             raise AssertionError(f"{decoder.launches} K2 launches for {steps} steps")
         print(f"[8 cell] {name}: {rate / 1e6:.2f} Mbit/s coded on {card}; "
               f"{decoder.launches} K2 launches for {steps} steps; "
-              f"{sc['ebn0_db']} dB over {point.blocks} blocks: FER {point.fer:.5f}, "
+              f"{ebn0} dB over {point.blocks} blocks: FER {point.fer:.5f}, "
               f"BER {point.ber:.3e}, mean iterations {point.mean_iterations:.3f}",
               flush=True)
     lap(8)
@@ -2396,6 +2395,7 @@ def main() -> None:
 
     # -- 14: the DVB-S2 cells and their reference points -----------------------
     dv_encoder = LDPCEncoder(dv_H)
+    dv_codes = {"dvbs2-64800": [dv_H, dv_layout, dv_encoder]}
     hbm_launches = {}
     philox_planes.launches.clear()
     expected = collections.Counter()
@@ -2405,8 +2405,8 @@ def main() -> None:
         ("dvbs2_minsum", "minsum", 1.0, 1.0, 0.14708, "dvbs2_minsum"),
     ]
     for name, decoder_name, ebn0, fer_ref, ber_ref, ref_name in dv_bands:
-        if name in DVBS2_SCENARIOS:
-            sim = build_dvbs2_sim(name, dev, layout=dv_layout, encoder=dv_encoder)
+        if name in MATRIX:
+            sim = build_matrix_sim(name, dev, dv_codes)[0]
         else:
             tables = configs[name].tables
             sim = BERSimulator(
@@ -2420,7 +2420,7 @@ def main() -> None:
         decoder = sim.fused_decoder
         decoder.launches = 0
         steps, rate = 0, None
-        if name in DVBS2_SCENARIOS:
+        if name in MATRIX:
             rate = measure_sim_throughput(sim, ebn0)
             steps = (1 + 6) * sim.steps_per_dispatch
         point = dispatch_point(sim, ebn0, DV_DISPATCHES)
@@ -2827,7 +2827,7 @@ def main() -> None:
           f"{mary['dvbs2_qam16_mbit_s']:.2f} Mbit/s coded on {card}", flush=True)
     # The data-parallel path's launches (phases 35, 36 and 38, counted in
     # their ranks and dispatches) join each kernel's count.
-    parallel = parallel_phases(dev, card, lap, headline, layout, dv_layout)
+    parallel = parallel_phases(dev, card, lap, headline, layout, dv_codes)
     parallel_kernels = {"ib_lut_fused": "k1", "float_hbm_minsum": "k4",
                         "channel_input_uniform_clusters": "uniform_clusters",
                         "channel_input_uniform_llrs": "uniform_llrs"}

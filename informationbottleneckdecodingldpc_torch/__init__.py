@@ -44,9 +44,9 @@ the model zoo) is its own copy.
                  per card, the counters all-reduced.
 - ``models``     named codes with the port's decode layout, and decoder
                  configs built or loaded on demand.
-- ``utils``      the headline, float-decoder, DVB-S2 and matrix scenarios,
-                 the primitive peaks, the roofline, the probes' runners and
-                 profiling helpers.
+- ``utils``      the headline and the benchmark matrix, the primitive
+                 peaks, the roofline, the probes' runners and profiling
+                 helpers.
 - ``cli``        command lines: the BER sweep (``simulate``), decoder
                  construction (``construct``), the results queue
                  (``queue``: configs, sweeps, extensions, matrix, report)

@@ -12,15 +12,9 @@ the JAX script's layout (``scenarios`` and ``roofline``) and records the card
 ``results/BENCH_MATRIX.json`` (TPU numbers) is never written. There is no CPU
 measurement: without a CUDA device the run raises.
 
-With ``--profile``, one more dispatch of each named cell runs under
-``torch.profiler``: its device time per kernel, its decode and idle shares
-of the median dispatch and its channel input's device time per step
-(``utils/benchmarks.py`` ``profile_dispatch``).
-
 Usage:
   python -m informationbottleneckdecodingldpc_torch.cli.bench_matrix \\
-      [--out results/torch/BENCH_MATRIX.json] [--only wlan_ib_fused,dvbs2_minsum] \\
-      [--profile wlan_ib_fused]
+      [--out results/torch/BENCH_MATRIX.json] [--only wlan_ib_fused,dvbs2_minsum]
 """
 
 from __future__ import annotations
@@ -34,7 +28,7 @@ from pathlib import Path
 import torch
 
 from ..kernels.peaks import FLOAT_OPS, LOOKUPS
-from ..utils.benchmarks import MATRIX, build_matrix_sim, measure_sim, profile_dispatch
+from ..utils.benchmarks import MATRIX, build_matrix_sim, measure_sim
 from ..utils.peaks import _CACHE, primitive_peak
 from ..utils.roofline import cell_roofline, traffic_bandwidth
 
@@ -70,9 +64,8 @@ def card() -> dict:
     }
 
 
-def run(names: list[str], device: torch.device, profiled: tuple[str, ...] = ()) -> dict:
-    """Time the cells ``names`` on ``device`` and compute their roofline;
-    profile one dispatch of each cell in ``profiled``."""
+def run(names: list[str], device: torch.device) -> dict:
+    """Time the cells ``names`` on ``device`` and compute their roofline."""
     dev_record = card()
     out = {"unit": "coded_bits_per_s", "device": dev_record, "scenarios": {}}
     info, codes = {}, {}
@@ -101,14 +94,6 @@ def run(names: list[str], device: torch.device, profiled: tuple[str, ...] = ()) 
         info[name] = (sim.layout, tables, matching)
         print(f"{name}: {bps / 1e6:.2f} Mbit/s coded ({mean_iters:.2f} iterations, "
               f"{sim.backend}, {type(decoder).__name__})", flush=True)
-        if name in profiled:
-            prof = out["scenarios"][name]["profile"] = profile_dispatch(sim, ebn0, bps)
-            top = ", ".join(f"{k[:60]} {v:.3f}" for k, v in list(prof["kernel_ms"].items())[:6])
-            ci = prof["channel_input_ms_per_step"]
-            print(f"profile {name}: wall {prof['wall_ms']:.3f} ms per dispatch, decode share "
-                  f"{prof['decode_share']:.1%}, idle share {prof['idle_share']:.1%}, channel input "
-                  f"{'not measured' if ci is None else f'{ci:.4f} ms'} per step; device ms: "
-                  f"{top}", flush=True)
         del sim, decoder
         torch.cuda.empty_cache()
 
@@ -152,8 +137,6 @@ def main(argv=None) -> dict:
     p.add_argument("--out", default=str(DEFAULT_OUT))
     p.add_argument("--only", default="", help="comma-separated cell names")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--profile", default="",
-                   help="comma-separated cells to profile one dispatch of (torch.profiler)")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type != "cuda" or not torch.cuda.is_available():
@@ -162,7 +145,7 @@ def main(argv=None) -> dict:
     unknown = sorted(set(names) - set(MATRIX))
     if unknown:
         raise KeyError(f"unknown cells {unknown}; available: {list(MATRIX)}")
-    out = run(names, device, tuple(n for n in args.profile.split(",") if n))
+    out = run(names, device)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)

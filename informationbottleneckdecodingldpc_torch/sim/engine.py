@@ -74,7 +74,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..channel.awgn import received_plane, sigma2_from_ebn0_db
+from ..channel.awgn import sigma2_from_ebn0_db
 from ..channel.demap import demap_llrs
 from ..channel.modulation import Constellation, gray_encoding_table
 from ..channel.quantizer import DeviceQuantizerTables, build_quantizer_tables, device_tables
@@ -393,7 +393,11 @@ class BERSimulator:
             hard = hard != reference_bits[: self.prefix_len].bool()
         return hard.sum(dim=0, dtype=torch.int32)
 
-    def _decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor | None):
+    def decode_and_count(self, channel_input: torch.Tensor, bits: torch.Tensor | None = None):
+        """Decode the decoder's input ``channel_input`` [n_vars, batch] and
+        count its errors against the sent ``bits`` (None: the all-zeros
+        codeword): (bit errors, frame errors, iterations) as device
+        scalars."""
         with span("sim.decode"):
             res = self.fused_decoder(channel_input)
         with span("sim.count"):
@@ -403,53 +407,6 @@ class BERSimulator:
                 (errors > 0).sum(dtype=torch.int32),
                 res.iterations.to(torch.float32),
             )
-
-    def channel_input_from_y(
-        self, y: torch.Tensor, qt: DeviceQuantizerTables, sigma2: float
-    ) -> torch.Tensor:
-        """The decoder's input from the received plane: clusters (IB),
-        quantized LLRs, or true LLRs 2y/sigma^2."""
-        return rng.from_received(self._consumer, y, qt, sigma2)
-
-    def step_from_uniform(self, u: torch.Tensor, qt: DeviceQuantizerTables):
-        """One all-zeros block with quantized input, sampled by inversion
-        from the float32 uniform plane ``u`` [n_vars, batch]: (bit errors,
-        frame errors, iterations) as device scalars."""
-        kind = "uniform_clusters" if self.decoder == "ib" else "uniform_llrs"
-        return self._decode_and_count(rng.consume(kind, u, qt), None)
-
-    def step_from_received(
-        self,
-        bits: torch.Tensor,
-        y: torch.Tensor,
-        qt: DeviceQuantizerTables,
-        sigma2: float,
-    ):
-        """One block from the sent bits and the received plane ``y``."""
-        return self._decode_and_count(self.channel_input_from_y(y, qt, sigma2), bits)
-
-    def step_from_normal(
-        self, noise: torch.Tensor, qt: DeviceQuantizerTables, sigma2: float
-    ):
-        """One all-zeros block from the float32 normal plane ``noise``."""
-        bits = torch.zeros(noise.shape, dtype=torch.int8, device=noise.device)
-        return self.step_from_received(
-            bits, received_plane(bits, noise, sigma2), qt, sigma2
-        )
-
-    def step_from_encoded(
-        self,
-        info: torch.Tensor,
-        noise: torch.Tensor,
-        qt: DeviceQuantizerTables,
-        sigma2: float,
-    ):
-        """One encoded block from info bits [K, batch] and the float32
-        normal plane ``noise`` [N, batch]."""
-        codeword = self._encode(info)
-        return self.step_from_received(
-            codeword, received_plane(codeword, noise, sigma2), qt, sigma2
-        )
 
     def n0_for(self, sigma2: float) -> float:
         """The M-ary chain's complex-noise variance: float32(2 sigma^2 / k) in
@@ -470,12 +427,6 @@ class BERSimulator:
         y = sym + scale * noise.view(n_sym, 2, -1).permute(0, 2, 1)
         return demap_llrs(self._constellation, y, n0)
 
-    def step_from_symbols(self, info: torch.Tensor, noise: torch.Tensor, sigma2: float):
-        """One M-ary block from info bits [K, batch] and the float32 normal
-        plane ``noise`` [2 n_vars / k, batch] (:meth:`mary_llrs`)."""
-        codeword = self._encode(info)
-        return self._decode_and_count(self.mary_llrs(codeword, noise, sigma2), codeword)
-
     @property
     def _consumer(self) -> str:
         """What the decoder reads: 'clusters' (IB), 'llrs' (quantized) or
@@ -487,10 +438,10 @@ class BERSimulator:
     @property
     def channel_input_kind(self) -> str | None:
         """The fused kind of ``rng.channel_input`` a step runs
-        (``kernels/philox_planes.py`` ``FUSED``): what ``step_from_uniform``,
-        ``step_from_normal`` or ``step_from_encoded`` builds on this chain;
-        None on an M-ary chain, whose step draws planes and demaps with torch
-        operators (no fused kind computes the demapper)."""
+        (``kernels/philox_planes.py`` ``FUSED``) on this chain, which
+        ``rng.consume`` builds from a drawn plane; None on an M-ary chain,
+        whose step draws planes and demaps with torch operators (no fused
+        kind computes the demapper)."""
         if self.modulation != "bpsk":
             return None
         if self.chain == "encoded":
@@ -518,7 +469,7 @@ class BERSimulator:
                     self.channel_input_kind, self._key, self.layout.n_vars, offset, batch,
                     self.device, qt, sigma2, codeword,
                 )
-        return self._decode_and_count(channel_input, codeword)
+        return self.decode_and_count(channel_input, codeword)
 
     def _step(self, ebn0_db: float, step_index: int, qt: DeviceQuantizerTables):
         """``steps_per_dispatch`` blocks from ``step_index`` on, without a

@@ -160,11 +160,11 @@ def consume(
     codeword: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The decoder's input of fused ``kind`` from its drawn ``plane`` by the
-    quantizer and AWGN operators, as the engine's ``step_from_*`` build it:
-    inversion sampling of the all-zeros codeword from a uniform plane
-    (clusters, or their LLRs); y = bpsk(codeword) + sqrt(sigma^2) n from a
-    normal plane (the all-zeros codeword when ``codeword`` is None), then its
-    cluster, the cluster's LLR or 2y / sigma^2."""
+    quantizer and AWGN operators: inversion sampling of the all-zeros
+    codeword from a uniform plane (clusters, or their LLRs); y =
+    bpsk(codeword) + sqrt(sigma^2) n from a normal plane (the all-zeros
+    codeword when ``codeword`` is None), then its cluster, the cluster's LLR
+    or 2y / sigma^2."""
     draw, consumer, encoded = FUSED[kind]
     if encoded != (codeword is not None):
         raise ValueError(f"{kind} {'reads' if encoded else 'takes no'} codeword")

@@ -1,13 +1,9 @@
-"""The headline, float and DVB-S2 scenarios, the benchmark matrix, its
-roofline and peak rates, throughput measurement, and the probes' rates."""
+"""The headline and the benchmark matrix, its roofline and peak rates,
+throughput measurement, and the probes' rates."""
 
 from .benchmarks import (
-    DVBS2_SCENARIOS,
-    FLOAT_SCENARIOS,
     HEADLINE,
     MATRIX,
-    build_dvbs2_sim,
-    build_float_sim,
     build_headline_sim,
     build_matrix_sim,
     measure_sim,
@@ -23,12 +19,8 @@ from .probes import (
 )
 
 __all__ = [
-    "DVBS2_SCENARIOS",
-    "FLOAT_SCENARIOS",
     "HEADLINE",
     "MATRIX",
-    "build_dvbs2_sim",
-    "build_float_sim",
     "build_headline_sim",
     "build_matrix_sim",
     "measure_columns",

@@ -1,31 +1,22 @@
-"""The headline throughput scenario, the float decoders' and DVB-S2
-scenarios, the benchmark matrix, and their timing.
+"""The headline throughput scenario, the benchmark matrix, and their timing.
 
 Port of ``utils/benchmarks.py``: WLAN 802.11n N=1296 R=1/2, the irregular IB
 decoder with message alignment (|T|=16, i_max=50, checked-in config
 ``results/configs/wlan_T16_0.8.npz``), the fused kernel, all-zeros chain at
 0.8 dB, batch 4096 x 8 Monte-Carlo steps per dispatch. Metric: decoded coded
 bits/s per device, the median of timed dispatches after one warm-up.
-
-``FLOAT_SCENARIOS`` are the benchmark matrix's float cells on the same code
-(``scripts/bench_matrix.py`` ``wlan_minsum`` and ``wlan_bp_quant``):
-min-sum and BP on 16-level quantized LLRs, all-zeros chain at 2.0 dB,
-i_max 50, batch 4096 x 8 steps.
-
-``DVBS2_SCENARIOS`` are the matrix's DVB-S2 R=1/2 N=64800 cells
-(``scripts/bench_matrix.py`` ``dvbs2_ib_hbm_encoded`` and ``dvbs2_minsum``):
-the IB decoder with config ``dvbs2_T16_0.6`` on the encoded chain through the
-device-memory kernel K3, and min-sum on 16-level quantized LLRs on the
-all-zeros chain (K4 through ``backend='auto'``), both at 1.0 dB, i_max 50,
-counting the info bits, batch 1024 x 1 step per dispatch (the JAX matrix
-used 128 for the TPU's VMEM; a card holds 1024: K4's float views are 1.86 GB).
+``HEADLINE`` is the matrix's ``wlan_ib_fused`` cell, which
+:func:`build_headline_sim` builds.
 
 ``MATRIX`` are the 12 cells of ``scripts/bench_matrix.py:318-350`` with
-their names, models, decoders, chains, backends, SNRs and batches, run by
-``cli/bench_matrix.py``: unset keys take the JAX script's defaults (chain
-``allzero``, backend ``auto``, batch 512 x 4 steps, the model's design Eb/N0
-and decode i_max). The DVB-S2 cells run at batch 1024, as ``DVBS2_SCENARIOS``
-do; the all-zeros cells of the regular code count every bit.
+their names, models, decoders, chains, backends, SNRs and batches, built by
+:func:`build_matrix_sim` and run by ``cli/bench_matrix.py``: unset keys take
+the JAX script's defaults (chain ``allzero``, backend ``auto``, batch 512 x 4
+steps, the model's design Eb/N0 and decode i_max); the float decoders read
+16-level quantized LLRs. The DVB-S2 cells run at batch 1024 x 1 step (the JAX
+matrix used 128 for the TPU's VMEM; a card holds 1024: K4's float views are
+1.86 GB); the all-zeros cells of the regular code count every bit, the
+others the info bits.
 """
 
 from __future__ import annotations
@@ -46,48 +37,6 @@ HEADLINE = dict(
     steps_per_dispatch=8,
     ebn0_db=0.8,
 )
-
-FLOAT_SCENARIOS = {
-    name: dict(
-        model="wlan-1296",
-        decoder=decoder,
-        chain="allzero",
-        llr_source="quantized",
-        count_all_bits=False,
-        batch=4096,
-        steps_per_dispatch=8,
-        max_iters=50,
-        ebn0_db=2.0,
-        seed=0,
-    )
-    for name, decoder in (("wlan_minsum", "minsum"), ("wlan_bp_quant", "bp"))
-}
-
-DVBS2_SCENARIOS = {
-    "dvbs2_ib_hbm_encoded": dict(
-        model="dvbs2-64800",
-        decoder="ib",
-        config="dvbs2_T16_0.6",
-        chain="encoded",
-        backend="hbm",
-        batch=1024,
-        steps_per_dispatch=1,
-        ebn0_db=1.0,
-        seed=0,
-    ),
-    "dvbs2_minsum": dict(
-        model="dvbs2-64800",
-        decoder="minsum",
-        chain="allzero",
-        llr_source="quantized",
-        backend="auto",
-        batch=1024,
-        steps_per_dispatch=1,
-        max_iters=50,
-        ebn0_db=1.0,
-        seed=0,
-    ),
-}
 
 _WLAN_IB = dict(model="wlan-1296", decoder="ib", config="wlan_T16_0.8")
 MATRIX = {
@@ -193,73 +142,14 @@ def measure_sim(sim, ebn0_db: float) -> tuple[float, float]:
     return bps, sum(iters) / len(iters)
 
 
-# The decode kernels' names: K1, K2 and the passes of K3 and K4.
-DECODE_KERNELS = ("ib_lut_fused_kernel", "float_fused_kernel", "seed_kernel", "cn_kernel",
-                  "vn_kernel", "syndrome_kernel", "decide_kernel")
-
-
-# The kernel that opens a step's channel input: the Philox kernel, for the
-# encoded chain's info bits or for the whole input (csrc/philox_planes.cu).
-DRAW_KERNEL = "channel_input_kernel"
-
-
-def channel_input_ms(kernels: list[tuple[str, float, float]], steps: int) -> float | None:
-    """Device milliseconds per step of the channel input in a profiled
-    dispatch of ``steps`` steps, from its ``kernels`` as (name, start us,
-    duration us): every kernel of a step from its first Philox launch to its
-    decode launch (the encoded chain's info bits and encoder included). None
-    when no decode kernel ran (``backend='xla'``)."""
-    total, inside, decoded = 0.0, False, False
-    for name, _, us in sorted(kernels, key=lambda k: k[1]):
-        if any(k in name for k in DECODE_KERNELS):
-            inside, decoded = False, True
-            continue
-        inside = inside or DRAW_KERNEL in name
-        if inside:
-            total += us
-    return total / 1e3 / steps if decoded else None
-
-
-def profile_dispatch(sim, ebn0_db: float, bps: float) -> dict:
-    """Device milliseconds per kernel of one dispatch of a CUDA BERSimulator
-    from ``torch.profiler`` (after an unprofiled one), and the shares of the
-    dispatch's wall time that ``bps`` (:func:`measure_sim_throughput`)
-    implies: the decode share is the decode kernels' time over it, the idle
-    share one less all kernels' time over it; and the channel input's device
-    milliseconds per step (:func:`channel_input_ms`)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    qt = sim.quantizer_for(ebn0_db)
-    sim._step(ebn0_db, 9000 * sim.steps_per_dispatch, qt)
-    torch.cuda.synchronize(sim.device)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sim._step(ebn0_db, 9001 * sim.steps_per_dispatch, qt)
-        torch.cuda.synchronize(sim.device)
-    ms = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-        if us:
-            ms[e.key] = ms.get(e.key, 0.0) + us / 1e3
-    if not ms:
-        raise RuntimeError("the profiler saw no kernel on the card")
-    wall = sim.layout.n_vars * sim.batch_total * sim.steps_per_dispatch / bps * 1e3
-    decode = sum(v for k, v in ms.items() if any(n in k for n in DECODE_KERNELS))
-    kernels = [(e.name, e.time_range.start, e.time_range.elapsed_us())
-               for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {
-        "wall_ms": wall,
-        "kernel_ms": dict(sorted(ms.items(), key=lambda kv: -kv[1])),
-        "decode_share": decode / wall,
-        "idle_share": 1 - sum(ms.values()) / wall,
-        "channel_input_ms_per_step": channel_input_ms(kernels, sim.steps_per_dispatch),
-    }
-
-
-def build_matrix_sim(name: str, device: torch.device | str, codes: dict | None = None):
+def build_matrix_sim(name: str, device: torch.device | str, codes: dict | None = None,
+                     **overrides):
     """The BERSimulator of ``MATRIX[name]`` on ``device`` and its Eb/N0 and
     decoder tables (None for a float decoder). ``codes`` caches each
-    model's (H, layout, host encoder) across cells."""
+    model's (H, layout, host encoder) across cells, or hands in prebuilt
+    ones; ``overrides`` replace the simulator's keyword arguments
+    (``batch_per_device``, ``n_devices`` for a rank of a data-parallel
+    group)."""
     from ..construct import DecoderConfig
     from ..decode import DeviceTrellis
     from ..encode import LDPCEncoder
@@ -294,87 +184,11 @@ def build_matrix_sim(name: str, device: torch.device | str, codes: dict | None =
         )
     else:
         kw["max_iters"] = sc.get("max_iters", spec.decode_i_max)
-    sim = BERSimulator(entry[1], sc["decoder"], device=device, **kw)
+    sim = BERSimulator(entry[1], sc["decoder"], device=device, **{**kw, **overrides})
     return sim, sc.get("ebn0", spec.design_ebn0_db), tables
 
 
 def build_headline_sim(device: torch.device | str, **overrides):
-    """The headline BERSimulator on ``device``; ``overrides`` replace its
-    keyword arguments (``batch_per_device``, ``n_devices`` for a rank of a
-    data-parallel group)."""
-    from ..construct import DecoderConfig
-    from ..decode import DeviceTrellis
-    from ..models import get_model
-    from ..sim import BERSimulator
-
-    spec = get_model(HEADLINE["model"])
-    cfg = DecoderConfig.load(str(CONFIG_DIR / f"{HEADLINE['config']}.npz"))
-    kw = dict(
-        trellis=DeviceTrellis.from_tables(cfg.tables, device),
-        device=device,
-        cardinality_t_channel=cfg.tables.cardinality_t_channel,
-        chain=HEADLINE["chain"],
-        count_all_bits=False,
-        batch_per_device=HEADLINE["batch"],
-        seed=0,
-        steps_per_dispatch=HEADLINE["steps_per_dispatch"],
-    )
-    return BERSimulator(spec.make_layout(), HEADLINE["decoder"], **{**kw, **overrides})
-
-
-def build_float_sim(name: str, device: torch.device | str):
-    """The BERSimulator of ``FLOAT_SCENARIOS[name]`` on ``device``."""
-    from ..models import get_model
-    from ..sim import BERSimulator
-
-    sc = FLOAT_SCENARIOS[name]
-    return BERSimulator(
-        get_model(sc["model"]).make_layout(),
-        sc["decoder"],
-        device=device,
-        max_iters=sc["max_iters"],
-        chain=sc["chain"],
-        llr_source=sc["llr_source"],
-        count_all_bits=sc["count_all_bits"],
-        batch_per_device=sc["batch"],
-        seed=sc["seed"],
-        steps_per_dispatch=sc["steps_per_dispatch"],
-    )
-
-
-def build_dvbs2_sim(name: str, device: torch.device | str, layout=None, encoder=None,
-                    **overrides):
-    """The BERSimulator of ``DVBS2_SCENARIOS[name]`` on ``device``; a
-    prebuilt DVB-S2 ``layout`` and host ``encoder`` save their few seconds of
-    host work; ``overrides`` replace its keyword arguments."""
-    from ..construct import DecoderConfig
-    from ..decode import DeviceTrellis
-    from ..encode import LDPCEncoder
-    from ..models import get_model
-    from ..sim import BERSimulator
-
-    sc = DVBS2_SCENARIOS[name]
-    spec = get_model(sc["model"])
-    encoded = sc["chain"] == "encoded"
-    if layout is None or (encoded and encoder is None):
-        H = spec.make_h()
-        layout = spec.make_layout(H) if layout is None else layout
-        encoder = LDPCEncoder(H) if encoded and encoder is None else encoder
-    kw = dict(max_iters=sc.get("max_iters"), llr_source=sc.get("llr_source", "quantized"))
-    if sc["decoder"] == "ib":
-        tables = DecoderConfig.load(str(CONFIG_DIR / f"{sc['config']}.npz")).tables
-        kw.update(
-            trellis=DeviceTrellis.from_tables(tables, device),
-            cardinality_t_channel=tables.cardinality_t_channel,
-        )
-    kw.update(
-        device=device,
-        chain=sc["chain"],
-        encoder=encoder if encoded else None,
-        count_all_bits=False,
-        batch_per_device=sc["batch"],
-        seed=sc["seed"],
-        steps_per_dispatch=sc["steps_per_dispatch"],
-        backend=sc["backend"],
-    )
-    return BERSimulator(layout, sc["decoder"], **{**kw, **overrides})
+    """The headline BERSimulator on ``device``: the matrix's
+    ``wlan_ib_fused`` cell, ``overrides`` replacing its keyword arguments."""
+    return build_matrix_sim("wlan_ib_fused", device, **overrides)[0]

@@ -5,12 +5,13 @@ Its plain version against the unfused composition the engine ran before (a
 plane, then the quantizer and AWGN operators) for every kind, its consumers
 against the JAX package's quantizer functions on the same float32 numpy
 planes, a per-thread model of the kernel's 2-D schedule against the planes it
-must reproduce, a Monte-Carlo step through the new path against the old
-``step_from_*`` route, the wrapper's refusals, and the profile's and the
-roofline's arithmetic for the kernel.
+must reproduce, a Monte-Carlo step through the new path against the unfused
+composition, the wrapper's refusals, and the benchmark's channel-input
+reading's and the roofline's arithmetic for the kernel.
 """
 
 import re
+import types
 from pathlib import Path
 
 import jax
@@ -39,7 +40,8 @@ from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator, rng
 from informationbottleneckdecodingldpc_torch.sim.engine import step_seed
 from informationbottleneckdecodingldpc_torch.utils import roofline
-from informationbottleneckdecodingldpc_torch.utils.benchmarks import channel_input_ms
+from ldpc_bench.harness import spec
+from ldpc_bench.harness.trace import Event
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -64,9 +66,9 @@ def _codeword(rows: int, batch: int, seed: int = 1) -> torch.Tensor:
 
 
 def _unfused(kind, qt, sigma2, plane, codeword):
-    """What the engine's ``step_from_uniform`` / ``step_from_normal`` /
-    ``step_from_encoded`` built from a drawn plane before the kernel took
-    it over."""
+    """What the engine built from a drawn plane before the kernel took it
+    over: inversion sampling from a uniform plane, or the received plane
+    of a normal one through the quantizer or 2y / sigma^2."""
     if kind.startswith("uniform"):
         zeros = torch.zeros(plane.shape, dtype=torch.int32)
         if kind == "uniform_clusters":
@@ -306,7 +308,7 @@ def wlan():
     ("minsum", "encoded", "quantized"),
     ("bp", "encoded", "true"),
 ])
-def test_a_step_counts_what_the_step_from_route_counts(wlan, decoder, chain, llr_source):
+def test_a_step_counts_what_the_unfused_composition_counts(wlan, decoder, chain, llr_source):
     layout, enc, cfg = wlan
     kw = dict(max_iters=4)
     if decoder == "ib":
@@ -323,12 +325,16 @@ def test_a_step_counts_what_the_step_from_route_counts(wlan, decoder, chain, llr
         return rng.draw(kind, sim._key, rows, 16, 8, "cpu")
 
     n = layout.n_vars
+    consumer = "clusters" if decoder == "ib" else "llrs" if llr_source == "quantized" else "true"
     if chain == "encoded":
-        want = sim.step_from_encoded(draw("bits", enc.k), draw("normal", n), qt, sigma2)
+        codeword = sim._encode(draw("bits", enc.k))
+        kind, plane = f"encoded_{consumer}", draw("normal", n)
     elif llr_source == "true":
-        want = sim.step_from_normal(draw("normal", n), qt, sigma2)
+        codeword, kind, plane = None, "normal_true", draw("normal", n)
     else:
-        want = sim.step_from_uniform(draw("uniform", n), qt)
+        codeword, kind, plane = None, f"uniform_{consumer}", draw("uniform", n)
+    assert sim.channel_input_kind == kind
+    want = sim.decode_and_count(_unfused(kind, qt, sigma2, plane, codeword), codeword)
     assert [float(v) for v in got] == [float(v) for v in want]
     assert int(got[0]) > 0
 
@@ -348,10 +354,11 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(tables):
         rng.channel_input("uniform_llrs", KEY, 10, 2**32 - 2, 4, "meta", qt)
 
 
-def test_the_profile_times_each_step_from_its_first_draw_to_its_decode():
-    """Two encoded steps, shuffled: the bits plane, the encoder and the
-    channel input of each count; the decode passes, the counting after them
-    and a kernel before the first draw do not."""
+def test_the_profile_times_each_step_between_its_first_draw_and_its_decode():
+    """The benchmark's ``channel_input.ms_per_step`` on two encoded steps,
+    shuffled: the bits plane, the encoder and the channel input of each
+    count; the decode passes, the counting after them and a kernel before
+    the first draw do not."""
     kernels = [
         ("fill", -10, 7.0),
         ("void (anonymous namespace)::channel_input_kernel<0, 0, false, true>(Args)", 0, 5.0),
@@ -361,9 +368,15 @@ def test_the_profile_times_each_step_from_its_first_draw_to_its_decode():
         ("channel_input_kernel<1, 1, true, true>", 2400, 30.0), ("cn_kernel", 2500, 10.0),
         ("vn_kernel", 2510, 10.0), ("reduce", 2520, 3.0),
     ]
-    got = channel_input_ms(kernels[::-1], steps=2)
+    metric = spec.metric("channel_input.ms_per_step")
+
+    def read(kernels, steps):
+        device = [Event(name, start, start + us) for name, start, us in kernels]
+        return metric.read(types.SimpleNamespace(device=device, steps=steps, reader=spec.metric))
+
+    got = read(kernels[::-1], steps=2)
     assert got == pytest.approx((5 + 100 + 30 + 5 + 95 + 30) / 2 / 1e3)
-    assert channel_input_ms(kernels[:4], steps=1) is None  # no decode kernel: not measured
+    assert read(kernels[:4], steps=1) is None  # no decode kernel: not measured
 
 
 def test_pipe_counts_of_sass_opcodes():

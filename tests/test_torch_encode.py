@@ -4,8 +4,9 @@ The device encoder is held bit for bit against the host ``LDPCEncoder`` on
 WLAN (dense GF(2) inverse of B) and a DVB-S2-like code (staircase B). The
 whole slice: the same numpy info bits and received plane ``y`` go through
 the JAX engine's pieces (device encoder, quantizer, XLA decoder, error
-count) and through the port's ``channel_input_from_y`` and step; the
-counters must be equal, and BP's outputs stay within the stated tolerance.
+count) and through the port's ``rng.from_received`` and
+``decode_and_count``; the counters must be equal, and BP's outputs stay
+within the stated tolerance.
 ``y`` is injected because XLA on the CPU contracts ``bpsk + sqrt(s2) * n``
 into one FMA where torch rounds the product first: that line is checked on
 its own, within one float32 ULP.
@@ -38,7 +39,8 @@ from informationbottleneckdecodingldpc_torch.decode import DeviceTrellis
 from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder, device_encoder
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
-from informationbottleneckdecodingldpc_torch.sim.engine import received_plane
+from informationbottleneckdecodingldpc_torch.channel.awgn import received_plane
+from informationbottleneckdecodingldpc_torch.sim.rng import from_received
 
 CONFIG = "results/configs/wlan_T16_0.8.npz"
 BP_RTOL = 1e-5  # as in tests/test_torch_float.py
@@ -131,14 +133,12 @@ def test_encoded_step_matches_jax_chain(wlan, decoder):
         jch = jax_quant.quantize_with(jqt.limits, jnp.asarray(y))
     else:
         jch = jax_quant.quantize_llr_with(jqt.limits, jqt.llrs, jnp.asarray(y))
-    ch = port.channel_input_from_y(torch.as_tensor(y), qt, sigma2)
+    ch = from_received(port._consumer, torch.as_tensor(y), qt, sigma2)
     assert np.array_equal(ch.numpy(), np.asarray(jch))
 
     res = jsim._decode(jch, None)
     per_cw = jsim._count_errors(res.outputs, jcw)
-    errors, frame_errors, iterations = port.step_from_received(
-        cw, torch.as_tensor(y), qt, sigma2
-    )
+    errors, frame_errors, iterations = port.decode_and_count(ch, cw)
     assert int(errors) == int(jnp.sum(per_cw)) > 0
     assert int(frame_errors) == int(jnp.sum(per_cw > 0))
     assert float(iterations) == float(res.iterations)
@@ -152,7 +152,7 @@ def test_true_llrs_match_jax(wlan):
     port, _ = _sims(wlan, "minsum", llr_source="true")
     sigma2 = port.sigma2_for(1.6)
     y = np.random.default_rng(2).normal(1.0, 0.8, (1296, 8)).astype(np.float32)
-    got = port.channel_input_from_y(torch.as_tensor(y), port.quantizer_for(1.6), sigma2)
+    got = from_received(port._consumer, torch.as_tensor(y), port.quantizer_for(1.6), sigma2)
     want = jax.jit(lambda y, s: 2.0 * y / s)(jnp.asarray(y), jnp.float32(sigma2))
     assert np.array_equal(got.numpy(), np.asarray(want))
 

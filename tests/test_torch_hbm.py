@@ -65,6 +65,7 @@ from informationbottleneckdecodingldpc_torch.kernels.ib_lut_hbm import (
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
 from informationbottleneckdecodingldpc_torch.sim.engine import WholeBatchDecoder, fused_fits
+from informationbottleneckdecodingldpc_torch.sim.rng import from_received
 
 BP_RTOL = 1e-5  # as in tests/test_torch_float.py
 CONFIGS = "results/configs"
@@ -475,12 +476,10 @@ def test_encoded_hbm_step_matches_jax_chain(ira, decoder):
         + np.float32(np.sqrt(sigma2)) * rng.standard_normal(cw.shape, dtype=np.float32)
     ).astype(np.float32)
     qt, jqt = port.quantizer_for(ebn0_db), jsim.quantizer_for(ebn0_db)
-    ch = port.channel_input_from_y(torch.as_tensor(y), qt, sigma2)
+    ch = from_received(port._consumer, torch.as_tensor(y), qt, sigma2)
     res = jsim._decode(jnp.asarray(ch.numpy()), None)
     per_cw = jsim._count_errors(res.outputs, jcw)
-    errors, frame_errors, iterations = port.step_from_received(
-        cw, torch.as_tensor(y), qt, sigma2
-    )
+    errors, frame_errors, iterations = port.decode_and_count(ch, cw)
     assert int(errors) == int(jnp.sum(per_cw)) > 0
     assert int(frame_errors) == int(jnp.sum(per_cw > 0))
     assert float(iterations) == float(res.iterations)

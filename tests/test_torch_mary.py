@@ -268,13 +268,14 @@ def test_mary_step_matches_the_jax_composition(wlan, kind, order, ebn0_db):
 
     res = jsim._decode(want, None)
     per_cw = jsim._count_errors(res.outputs, codeword)
-    e, f, it = sim._decode_and_count(torch.as_tensor(np.array(want)), port_codeword)
+    e, f, it = sim.decode_and_count(torch.as_tensor(np.array(want)), port_codeword)
     assert int(e) == int(jnp.sum(per_cw)) > 0
     assert int(f) == int(jnp.sum(per_cw > 0))
     assert float(it) == float(res.iterations)
-    own = sim._decode_and_count(sim.mary_llrs(port_codeword, torch.as_tensor(noise), sigma2),
-                                port_codeword)
-    step = sim.step_from_symbols(torch.as_tensor(info), torch.as_tensor(noise), sigma2)
+    own = sim.decode_and_count(sim.mary_llrs(port_codeword, torch.as_tensor(noise), sigma2),
+                               port_codeword)
+    codeword = sim._encode(torch.as_tensor(info))
+    step = sim.decode_and_count(sim.mary_llrs(codeword, torch.as_tensor(noise), sigma2), codeword)
     assert [float(v) for v in step] == [float(v) for v in own]
 
 
@@ -305,7 +306,9 @@ def test_the_mary_draw_is_a_normal_plane_on_stream_1(wlan):
     sigma2 = sim.sigma2_for(4.0)
     info = rng.plane_plain("bits", sim._key, layout.data_len, 0, 3)
     noise = rng.plane_plain("normal", sim._key, 2 * layout.n_vars // 3, 0, 3)
-    want = [float(v) for v in sim.step_from_symbols(info, noise, sigma2)]
+    codeword = sim._encode(info)
+    want = [float(v) for v in sim.decode_and_count(sim.mary_llrs(codeword, noise, sigma2),
+                                                   codeword)]
     assert [float(v) for v in sim._draw_step(None, sigma2)] == want
     with pytest.raises(ValueError, match="unknown channel input"):
         rng.channel_input(sim.channel_input_kind, sim._key, 10, 0, 3, "cpu", None)

@@ -45,6 +45,7 @@ from informationbottleneckdecodingldpc_torch.kernels.ib_lut_fused import pick_ba
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
 from informationbottleneckdecodingldpc_torch.sim.engine import WholeBatchDecoder, fused_fits
+from informationbottleneckdecodingldpc_torch.sim.rng import consume
 from informationbottleneckdecodingldpc_torch.utils import MATRIX, peaks, roofline
 
 REPO = Path(__file__).resolve().parents[1]
@@ -402,7 +403,8 @@ def test_xla_backend_ib_step_matches_jax_xla_step():
     )
     u = np.random.default_rng(2).random((layout.n_vars, batch), dtype=np.float32)
     qt, jqt = sim.quantizer_for(1.0), jsim.quantizer_for(1.0)
-    errors, frames, iters = sim.step_from_uniform(torch.as_tensor(u), qt)
+    errors, frames, iters = sim.decode_and_count(
+        consume(sim.channel_input_kind, torch.as_tensor(u), qt))
     zeros = jnp.zeros(u.shape, jnp.int32)
     res = jsim._decode(jax_sample_clusters(jqt.cdf, jnp.asarray(u), zeros), None)
     per_cw = jsim._count_errors(res.outputs, zeros)
@@ -423,7 +425,8 @@ def test_xla_backend_minsum_step_matches_jax_on_qc96():
                         cardinality_y_channel=400)
     u = np.random.default_rng(3).random((96, batch), dtype=np.float32)
     qt, jqt = sim.quantizer_for(6.0), jsim.quantizer_for(6.0)
-    errors, frames, iters = sim.step_from_uniform(torch.as_tensor(u), qt)
+    errors, frames, iters = sim.decode_and_count(
+        consume(sim.channel_input_kind, torch.as_tensor(u), qt))
     zeros = jnp.zeros(u.shape, jnp.int32)
     res = jsim._decode(jax_sample_llrs(jqt.cdf, jqt.llrs, jnp.asarray(u), zeros), None)
     per_cw = jsim._count_errors(res.outputs, zeros)
@@ -449,7 +452,8 @@ def test_regular8000_step_matches_jax():
     )
     u = np.random.default_rng(4).random((8000, batch), dtype=np.float32)
     qt, jqt = sim.quantizer_for(1.2), jsim.quantizer_for(1.2)
-    errors, frames, iters = sim.step_from_uniform(torch.as_tensor(u), qt)
+    errors, frames, iters = sim.decode_and_count(
+        consume(sim.channel_input_kind, torch.as_tensor(u), qt))
     zeros = jnp.zeros(u.shape, jnp.int32)
     res = jsim._decode(jax_sample_clusters(jqt.cdf, jnp.asarray(u), zeros), None)
     per_cw = jsim._count_errors(res.outputs, zeros)

@@ -2,9 +2,10 @@
 
 The whole slice: one numpy uniform plane goes through the JAX chain
 (inversion sampling, the XLA decoder of an ``xla``-backend BERSimulator,
-its error counting) and through the port's ``step_from_uniform``; the
-counters must be equal. ``run_point`` and the CLI run at a tiny size on the
-CPU. The port must import with ``jax`` blocked.
+its error counting) and through the port's ``rng.consume`` and
+``decode_and_count``; the counters must be equal. ``run_point`` and the
+CLI run at a tiny size on the CPU. The port must import with ``jax``
+blocked.
 """
 
 import dataclasses
@@ -33,7 +34,13 @@ from informationbottleneckdecodingldpc_torch.encode import LDPCEncoder
 from informationbottleneckdecodingldpc_torch.models import get_model
 from informationbottleneckdecodingldpc_torch.sim import BERSimulator
 from informationbottleneckdecodingldpc_torch.sim.engine import step_seed
-from informationbottleneckdecodingldpc_torch.utils import HEADLINE
+from informationbottleneckdecodingldpc_torch.sim.rng import consume
+from informationbottleneckdecodingldpc_torch.utils import (
+    HEADLINE,
+    MATRIX,
+    build_headline_sim,
+    build_matrix_sim,
+)
 
 CONFIG = "results/configs/wlan_T16_0.8.npz"
 JAX_POINT_KEYS = {f.name for f in dataclasses.fields(JaxPoint)}
@@ -59,7 +66,7 @@ def _port_sim(wlan, **kw):
 
 
 @pytest.mark.parametrize("ebn0_db, max_iters", [(0.8, 5), (6.0, 50)])
-def test_step_from_uniform_matches_jax_chain(wlan, ebn0_db, max_iters):
+def test_a_uniform_plane_step_matches_jax_chain(wlan, ebn0_db, max_iters):
     batch = 8
     # One tile of the whole batch: the fused twin runs in whole-batch
     # lockstep, as the JAX XLA decoder does.
@@ -88,7 +95,8 @@ def test_step_from_uniform_matches_jax_chain(wlan, ebn0_db, max_iters):
     jqt = jsim.quantizer_for(ebn0_db)
     for got, want in zip(qt, jqt):
         assert np.array_equal(got.numpy(), np.asarray(want))
-    errors, frame_errors, iterations = sim.step_from_uniform(torch.as_tensor(u), qt)
+    errors, frame_errors, iterations = sim.decode_and_count(
+        consume(sim.channel_input_kind, torch.as_tensor(u), qt))
 
     zeros = jnp.zeros(u.shape, jnp.int32)
     res = jsim._decode(jax_sample(jqt.cdf, jnp.asarray(u), zeros), None)
@@ -201,6 +209,28 @@ def test_headline_matches_the_jax_headline():
     )
 
     assert HEADLINE == JAX_HEADLINE
+
+
+def test_the_headline_is_the_matrix_wlan_ib_fused_cell():
+    cell = MATRIX["wlan_ib_fused"]
+    for key in ("model", "config", "decoder", "backend"):
+        assert HEADLINE[key] == cell[key]
+    assert HEADLINE["chain"] == cell.get("chain", "allzero")
+    assert (HEADLINE["batch"], HEADLINE["steps_per_dispatch"]) == (cell["batch"], cell["steps"])
+
+    def settings(sim):
+        return (sim.decoder, sim.backend, sim.chain, sim.llr_source, sim.count_all_bits,
+                sim.batch_per_device, sim.steps_per_dispatch, sim.seed, sim.max_iters,
+                sim.cardinality_t_channel, sim.layout.n_vars, type(sim.fused_decoder).__name__)
+
+    sim, ebn0_db, tables = build_matrix_sim("wlan_ib_fused", "cpu")
+    headline = build_headline_sim("cpu")
+    assert settings(headline) == settings(sim)
+    assert ebn0_db == HEADLINE["ebn0_db"] and tables.cardinality_t_channel == 16
+    assert settings(sim)[:7] == (HEADLINE["decoder"], HEADLINE["backend"], HEADLINE["chain"],
+                                 "quantized", False, HEADLINE["batch"],
+                                 HEADLINE["steps_per_dispatch"])
+    assert build_headline_sim("cpu", batch_per_device=8).batch_per_device == 8
 
 
 def test_port_imports_without_jax():
