@@ -79,7 +79,12 @@ the decoder factory and the results queue with its parity report.
     that leave after an even number of bodies, after an odd one and not at
     all (drawn at ``DV_MIXED_DB``, each tile's count from the twin), batch
     512 in tiles of 256; WLAN at batch 512, also in tiles of 200 and of
-    1024 (batch 1024). Equal (``==``) for min-sum and BP alike;
+    1024 (batch 1024); LLRs that force ties, +0 and -0 inputs and values
+    above the clamp (batch 256, and 400 in tiles of 200 at i_max 20 with
+    early exit off). Equal (``==``) for min-sum and BP alike; min-sum runs
+    on the node-state path (``state_launches`` equal to ``launches``, 0 for
+    BP) and equals K4's view path bit for bit (int32 views, the sign of a
+    zero too);
 14. the DVB-S2 cells through BERSimulator (``backend`` 'auto' picks K3/K4):
     coded Mbit/s, one decode per Monte-Carlo step; FER and BER over 8192
     blocks inside bands of about 3 sigma of the run and the reference's 128
@@ -95,7 +100,9 @@ the decoder factory and the results queue with its parity report.
     min-sum with early exit on at 1.0 dB (no tile leaves), timed; per-pass device times and launches (seed,
     CN, VN, exit, syndrome, decision) of K3, K4 min-sum with early exit on
     and K4 BP from ``torch.profiler``, K4 with early exit held to one CN,
-    exit and VN launch per body and one syndrome pass;
+    exit and VN launch per body and one syndrome pass; K4 min-sum's
+    node-state CN and VN passes a body beside their device-memory bytes, at
+    slices of 32 columns and of 16;
 16. the peak microkernels K5 (``csrc/peaks.cu``) and the copy K6
     (``csrc/hbm_copy.cu``), built beside K1-K4: registers and spills; each
     K5c op's instructions per application in its chain loop (``cuobjdump
@@ -1872,6 +1879,7 @@ def main() -> None:
         ib_lut_decode_tiled,
     )
     from informationbottleneckdecodingldpc_torch.cli import bench_matrix
+    from informationbottleneckdecodingldpc_torch.kernels.float_hbm import STATE_SLICE, state_slice
     from informationbottleneckdecodingldpc_torch.kernels import (
         float_fused,
         hbm_copy,
@@ -2100,6 +2108,19 @@ def main() -> None:
             qt.cdf, qt.llrs, u, torch.zeros(shape, dtype=torch.int32, device=dev)
         )
 
+    def forced_llrs(batch: int, seed: int, lay) -> torch.Tensor:
+        """LLRs that force K4's rare cases: multiples of 1 (ties of the least
+        magnitudes), 10% +0 and 10% -0 (checks with one and with two or more
+        zero inputs), 2% scaled by 90 (inputs above the +-150 clamp)."""
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        shape = (lay.n_vars, batch)
+        x = torch.round(torch.randn(shape, generator=g, device=dev) * 3 + 1)
+        r = torch.rand(shape, generator=g, device=dev)
+        x = torch.where(r < 0.1, torch.zeros_like(x), x)
+        x = torch.where(r > 0.9, -torch.zeros_like(x), x)
+        return torch.where((r > 0.45) & (r < 0.47), x * 90, x)
+
     def same(got, ref) -> bool:
         return (
             bool((got.outputs == ref.outputs).all())
@@ -2281,7 +2302,13 @@ def main() -> None:
                           for p in ("cn", "vn") for lanes in (1, 0) for bits, w in widths.items()},
                        **{f"{p}_kernelILi{bits}EE": f"{p} {w}"
                           for p in ("seed", "decide") for bits, w in widths.items()}},
-        "float_hbm": {**{f"cn_kernelILi{k}ELb{h}E": f"cn {rule} {r}" for k, rule in enumerate(("minsum", "bp"))
+        # The node-state kernels first: "vn_kernelILb0E" is also in their names.
+        "float_hbm": {"state_cn_kernelILb1E": "state cn body 0", "state_cn_kernelILb0E": "state cn",
+                      "state_syndrome_kernelILb1E": "state syndrome of the channel",
+                      "state_syndrome_kernelILb0E": "state syndrome",
+                      **{f"state_vn_kernelILb{h}E": f"state vn {r}" for h, r in ranges.items()},
+                      "state_seed_kernel": "state seed", "state_decide_kernel": "state decide",
+                      **{f"cn_kernelILi{k}ELb{h}E": f"cn {rule} {r}" for k, rule in enumerate(("minsum", "bp"))
                          for h, r in ranges.items()},
                       **{f"vn_kernelILb{h}E": f"vn {r}" for h, r in ranges.items()}},
     }
@@ -2361,6 +2388,8 @@ def main() -> None:
         ("wlan", layout, "quantized", 2.0, False, 50, True, 512, None),
         ("wlan", layout, "quantized", 2.0, False, 50, True, 512, 200),
         ("wlan", layout, "quantized", 2.0, False, 50, True, 1024, 1024),
+        ("dvbs2", dv_layout, "forced (ties, zeros, clamps)", None, False, 50, True, 256, None),
+        ("dvbs2", dv_layout, "forced (ties, zeros, clamps)", None, False, 20, False, 400, 200),
     ]
     for rule in rules:
         for k, (code, lay, label, ebn0, true, imax, early_exit, batch, tile) in enumerate(k4_cases):
@@ -2371,6 +2400,8 @@ def main() -> None:
                 ch, bodies = odd_even_tiles(rule, ebn0, bt, imax, seed=300 + k, lay=lay)
                 batch = ch.shape[1]
                 label = f"per-tile levels, tiles leave after {bodies} bodies,"
+            elif ebn0 is None:
+                ch = forced_llrs(batch, seed=300 + k, lay=lay)
             else:
                 ch = float_llrs(ebn0, batch, seed=300 + k, true=true, lay=lay)
             got = dec(ch)
@@ -2387,10 +2418,27 @@ def main() -> None:
                 )
             if ebn0 == DV_EXIT_DB and float(got.iterations) >= 49.0:
                 raise AssertionError(f"K4 {rule}'s early exit did not fire at {ebn0} dB")
+            # Min-sum runs on the node-state path, BP on the views; the state
+            # path equals the view path bit for bit, the sign of a zero too.
+            if dec.state_launches != (dec.launches if rule == "minsum" else 0) or dec.launches != 1:
+                raise AssertionError(f"K4 {rule} ran {dec.state_launches} of {dec.launches} decodes "
+                                     "on the node-state path")
+            path = "views"
+            if rule == "minsum":
+                views = HBMFloatDecoder(lay, rule, max_iters=imax, early_exit=early_exit,
+                                        batch_tile=tile)
+                views.node_state = False
+                v = views(ch)
+                torch.cuda.synchronize()
+                if not (same(got, v) and torch.equal(got.outputs.view(torch.int32),
+                                                     v.outputs.view(torch.int32))):
+                    raise AssertionError(f"K4's node-state path differs from its view path on "
+                                         f"{code} {label} LLRs at {ebn0} dB, max_iters {imax}")
+                path = "node state, == the view path bit for bit"
             print(f"[13 exact] K4 {rule} {code} {label} LLRs {ebn0} dB max_iters {imax} "
-                  f"early_exit={early_exit} batch {batch} tile {bt}: outputs, "
-                  f"unsatisfied and mean iterations {float(got.iterations):.4f} equal",
-                  flush=True)
+                  f"early_exit={early_exit} batch {batch} tile {bt} ({path}; {dec.state_launches} "
+                  f"of {dec.launches} decodes on the node-state path): outputs, unsatisfied and "
+                  f"mean iterations {float(got.iterations):.4f} equal the twin's", flush=True)
     lap(13)
 
     # -- 14: the DVB-S2 cells and their reference points -----------------------
@@ -2535,6 +2583,23 @@ def main() -> None:
             if not n["cn"] == n["vn"] == n["exit"] == 49 or n["syndrome"] != 1:
                 raise AssertionError(f"K4 with early exit launched {n}, not CN, exit and VN per body "
                                      "and one syndrome pass")
+    # K4 min-sum's node-state passes against their device-memory bytes, at the
+    # default slice and one other: a check record is 10 B, a total or a
+    # channel LLR 4 B. CN: records read and written, T read once (its
+    # gathers hit L2); VN: chs read, records read once, T written. The 49 CN
+    # launches include body 0's, which reads chs in place of the records.
+    n_checks, n_vars, batch = dv_layout.n_checks, dv_layout.n_vars, 1024
+    pass_bytes = {"cn": (20 * n_checks + 4 * n_vars) * batch, "vn": (10 * n_checks + 8 * n_vars) * batch}
+    for columns in (STATE_SLICE, STATE_SLICE // 2):
+        dec = HBMFloatDecoder(dv_layout, "minsum", max_iters=50)
+        dec.slice_columns = columns
+        passes = pass_times(lambda: dec(inputs["minsum"]))
+        body_ms = {k: passes[k][0] / passes[k][1] for k in pass_bytes}
+        print(f"[15 state] K4 min-sum node state, slices of {state_slice(dec.batch_tile, columns)} columns, "
+              "a body at batch 1024: " + ", ".join(
+                  f"{k.upper()} {body_ms[k]:.4f} ms for {b / 1e9:.3f} GB of state "
+                  f"({b / body_ms[k] / 1e6:.0f} GB/s, {b / body_ms[k] / 3.35e9 * 1e2:.1f}% of 3.35 TB/s)"
+                  for k, b in pass_bytes.items()) + f" on {card}", flush=True)
     lap(15)
 
     # -- 16: K5 and K6 build (started in phase 2) ----------------------------
@@ -2749,7 +2814,7 @@ def main() -> None:
                 f"compute {b['compute_ms']:.4f} ms (busiest {b['busiest']})")
         if "hbm" in name:
             traffic = roofline.view_bytes_per_body(lay, decoder_name, tables) * bodies * batch / matrix_bw
-            line += f", view traffic {traffic * 1e3:.3f} ms at the copy bandwidth"
+            line += f", device-memory traffic {traffic * 1e3:.3f} ms at the copy bandwidth"
         print(line + f" on {card}", flush=True)
     lap(20)
 

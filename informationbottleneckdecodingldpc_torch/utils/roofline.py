@@ -44,6 +44,7 @@ import torch
 from ..construct.trellis import TrellisTables
 from ..decode.graph_arrays import DecodeLayout
 from ..kernels import hbm_copy, philox_planes
+from ..kernels.float_hbm import takes_node_state
 from ..kernels.ib_lut_hbm import view_bits
 from .peaks import _cuda, differenced_rate, lookup2d_peak
 
@@ -199,13 +200,19 @@ def cn_edges(layout: DecodeLayout) -> int:
 def view_bytes_per_body(
     layout: DecodeLayout, decoder: str, tables: TrellisTables | None = None
 ) -> float:
-    """Device-memory view traffic of one body per codeword of K3 (IB: both
-    views read and written once and the channel plane read, at the bits a
-    message that ``tables`` give K3, :func:`~..kernels.ib_lut_hbm.view_bits`)
-    or K4 (float32), as the traffic bound counts it."""
+    """Device-memory traffic of one body per codeword of K3 (IB: both views
+    read and written once and the channel plane read, at the bits a message
+    that ``tables`` give K3, :func:`~..kernels.ib_lut_hbm.view_bits`) or K4,
+    as the traffic bound counts it: on K4's node-state path
+    (:func:`~..kernels.float_hbm.takes_node_state`) each check's 10-byte
+    record read twice and written once and each variable's total and
+    channel LLR (4 bytes each) read once and its total written once, else
+    four float32 views an edge."""
     if decoder == "ib":
         bits = view_bits(tables.cardinality_t_channel, tables.cardinality_t_decoder)
         return (4 * layout.n_edges + layout.n_vars) * bits / 8
+    if takes_node_state(layout, decoder):
+        return 30 * layout.n_checks + 12 * layout.n_vars
     return 16 * layout.n_edges
 
 

@@ -298,9 +298,14 @@ def test_traffic_bound_applies_to_hbm_cells_with_the_kernels_view_bytes():
     dv = get_model("dvbs2-64800").make_layout()
     bw = 2.5e12
     k4 = roofline.cell_roofline(dv, "minsum", "hbm", 49.0, _fake_peak, bw, achieved_bps=7e8)
-    want = bw * 64800 / (16 * 226799 * 49.0)
+    # Min-sum on K4's node-state path: 10-byte check records read twice and
+    # written once, the totals written and read, the channel LLRs read.
+    assert k4["view_bytes_per_body_per_codeword"] == 30 * 32400 + 12 * 64800
+    want = bw * 64800 / ((30 * 32400 + 12 * 64800) * 49.0)
     assert k4["bound"] == "hbm_traffic"
     assert k4["speed_of_light_coded_mbps"] * 1e6 == pytest.approx(want, rel=1e-12)
+    # BP keeps K4's four float32 views an edge.
+    assert roofline.view_bytes_per_body(dv, "bp") == 16 * 226799
     k3 = roofline.cell_roofline(dv, "ib", "hbm", 49.0, _fake_peak, bw, tables=_tables("dvbs2_T16_0.6"))
     # |T| = 16: K3's views hold two 4-bit messages a byte.
     assert k3["view_bytes_per_body_per_codeword"] == (4 * 226799 + 64800) / 2
