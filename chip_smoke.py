@@ -20,14 +20,20 @@ the decoder factory and the results queue with its parity report.
 
 1. the card exists (else this raises); its name and power limit;
 2. K1 builds from ``csrc/ib_lut_fused.cu`` with nvcc (K2 builds beside it):
-   its threads per CTA, registers and spills of each instantiation;
+   its threads per CTA, registers and spills of each instantiation (the
+   per-lane one included);
 3. K1 against its plain PyTorch twin on the same CUDA inputs, bit-exact
-   (outputs, unsatisfied counts, mean iterations): |T|=16 at 0.8 and 6.0 dB
-   with early exit on and off, |T|=32 at 0.8 dB fixed and at 6.0 dB with
-   early exit, a batch of 500 (the last 16-codeword tile padded), no
-   alignment, three tiles that leave after an even number of bodies, after
-   an odd one and not at all (drawn at fixed levels, each tile's count from
-   the twin), and i_max 1, 2 and 3 at 8.0 dB with early exit on and off;
+   (outputs, unsatisfied counts, mean iterations), each case with the path
+   it took (per-lane tables and 4-bit views at WLAN |T|=16, one table copy a
+   block otherwise): |T|=16 at 0.8 and 6.0 dB with early exit on and off,
+   |T|=32 at 0.8 dB fixed and at 6.0 dB with early exit, a batch of 500 (the
+   last 16-codeword tile padded), no alignment, three tiles that leave after
+   an even number of bodies, after an odd one and not at all (drawn at fixed
+   levels, each tile's count from the twin), i_max 1, 2 and 3 at 8.0 dB with
+   early exit on and off; the benchmark's sizes, |T|=16 at 0.8 dB and batch
+   4096 and |T|=32 at 0.6 dB and batch 2048; and the regular (3,6) N=8000
+   code at tile 4 (i_max 250 cut to 20 for the twin) with early exit on and
+   off;
 4. the headline simulation: coded Mbit/s, one K1 and one channel-input
    launch per Monte-Carlo step and no plane launch, FER and BER at 0.8 dB
    inside bands around the JAX package's reference curve, mean iterations at
@@ -117,8 +123,8 @@ the decoder factory and the results queue with its parity report.
 18. the peaks (lookups/s, float op applications/s, each against its
     per-pipe bound: the busiest of its classes and the issue limit) and K6's copy bandwidth against ``copy_`` and the data
     sheet's 3.35 TB/s (above 1.05 x that the byte count is wrong: raise);
-19. the regular (3,6) N=8000 code: K1 (tile 4, i_max 250 cut to 20 for the
-    twin) and K2 (one codeword per CTA) bit-exact against their twins; IB
+19. the regular (3,6) N=8000 code: K2 (one codeword per CTA) bit-exact
+    against its twin (K1's cases are phase 3's); IB
     at 1.2 dB and min-sum at 1.7 dB over 8192 blocks inside bands of about
     3 sigma around ``results/ber/regular_*.json``;
 20. the benchmark matrix's entry point over all 12 cells with its K5 peaks
@@ -1919,8 +1925,9 @@ def main() -> None:
         probe_builds = {n: builds[n].result()[1] for n in PROBE_LIBRARIES}
         late_builds = {n: builds[n].result()[1] for n in LATE_LIBRARIES}
         all_loaded = time.perf_counter() - t0
-    k1_names = {f"kernelILb{r}ELi{v}E": f"{'shared' if r else 'device'} routes, V={v}"
+    k1_names = {f"kernelILb{r}ELi{v}ELb0E": f"{'shared' if r else 'device'} routes, V={v}"
                 for r in (0, 1) for v in (1, 4)}
+    k1_names["kernelILb0ELi4ELb1E"] = "per-lane tables, 4-bit views, V=4"
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; threads per CTA at V columns per thread "
           f"{json.dumps(ib_lut_fused.THREADS)}; "
@@ -1929,9 +1936,10 @@ def main() -> None:
 
     # -- 3: kernel vs plain twin -----------------------------------------
     layout = get_model("wlan-1296").make_layout()
+    reg_layout = get_model("regular-3-6-8000").make_layout()
     configs = {
         name: DecoderConfig.load(str(CONFIG_DIR / f"{name}.npz"))
-        for name in ("wlan_T16_0.8", "wlan_T32_0.6")
+        for name in ("wlan_T16_0.8", "wlan_T32_0.6", "regular_T16_1.05")
     }
 
     def clusters(cfg, ebn0_db: float, batch: int, seed: int, lay=layout) -> torch.Tensor:
@@ -1985,20 +1993,26 @@ def main() -> None:
         ("wlan_T16_0.8", 6.0, 512, None, True, False),
         ("wlan_T16_0.8", (6.0, 5.0, 4.0, 3.0), None, None, True, True),
         *(("wlan_T16_0.8", 8.0, 512, imax, ee, True) for imax in (1, 2, 3) for ee in (True, False)),
+        ("wlan_T16_0.8", 0.8, 4096, None, True, True),  # the benchmark's sizes
+        ("wlan_T32_0.6", 0.6, 2048, None, True, True),
+        *(("regular_T16_1.05", 1.2, 8, REG_TWIN_IMAX, ee, True) for ee in (True, False)),
     ]
     for k, (name, ebn0, batch, imax, early_exit, matching) in enumerate(cases):
         cfg = configs[name]
-        dec = FusedIBDecoder(layout, cfg.tables, max_iters=imax, early_exit=early_exit,
+        lay = reg_layout if name.startswith("regular") else layout
+        dec = FusedIBDecoder(lay, cfg.tables, max_iters=imax, early_exit=early_exit,
                              use_matching=matching)
+        carve = ib_lut_fused.kernel_shared_bytes(lay, dec.batch_tile, cfg.tables.cardinality_t_channel,
+                                                 cfg.tables.cardinality_t_decoder)
         label = f"{ebn0} dB"
         if isinstance(ebn0, tuple):
             ch, bodies = ib_odd_even_tiles(cfg, ebn0, dec.batch_tile, dec.imax, seed=300 + k)
             label = f"per-tile levels {ebn0} dB, tiles leave after {bodies} bodies,"
         else:
-            ch = clusters(cfg, ebn0, batch, seed=k)
+            ch = clusters(cfg, ebn0, batch, seed=k, lay=lay)
         got = dec(ch)
         ref = ib_lut_decode_tiled(
-            layout, dec.trellis(dev), ch, dec.batch_tile, max_iters=imax, early_exit=early_exit
+            lay, dec.trellis(dev), ch, dec.batch_tile, max_iters=imax, early_exit=early_exit
         )
         torch.cuda.synchronize()
         err = int((got.outputs - ref.outputs).abs().max())
@@ -2015,9 +2029,12 @@ def main() -> None:
             )
         if early_exit and ebn0 == 6.0 and float(got.iterations) >= 49.0:
             raise AssertionError("early exit did not fire at 6.0 dB")
+        path = "per-lane tables" if carve.lanes else (
+            f"one table copy a block, routes in {'shared' if carve.shared_routes else 'device'} memory")
         print(f"[3 exact] {name} {label} max_iters {dec.imax} early_exit={early_exit} "
-              f"matching={matching} batch {ch.shape[1]} tile {dec.batch_tile}: outputs, "
-              f"unsatisfied and mean iterations {float(got.iterations):.4f} equal", flush=True)
+              f"matching={matching} batch {ch.shape[1]} tile {dec.batch_tile} ({path}, "
+              f"{carve.bytes} B): outputs, unsatisfied and mean iterations "
+              f"{float(got.iterations):.4f} equal", flush=True)
     lap(3)
 
     # -- 4: headline main path -------------------------------------------
@@ -2718,20 +2735,7 @@ def main() -> None:
     lap(18)
 
     # -- 19: the regular (3,6) N=8000 code ----------------------------------------
-    reg_layout = get_model("regular-3-6-8000").make_layout()
-    reg_tables = DecoderConfig.load(str(CONFIG_DIR / "regular_T16_1.05.npz")).tables
-    for early_exit in (True, False):
-        ch = clusters(configs["wlan_T16_0.8"], 1.2, 8, seed=400, lay=reg_layout)
-        dec = FusedIBDecoder(reg_layout, reg_tables, max_iters=REG_TWIN_IMAX, early_exit=early_exit)
-        got = dec(ch)
-        ref = ib_lut_decode_tiled(reg_layout, dec.trellis(dev), ch, dec.batch_tile,
-                                  max_iters=REG_TWIN_IMAX, early_exit=early_exit)
-        torch.cuda.synchronize()
-        if dec.batch_tile != 4 or not same(got, ref):
-            raise AssertionError(f"K1 on regular N=8000 (tile {dec.batch_tile}) disagrees with its twin")
-        print(f"[19 exact] K1 regular N=8000 1.2 dB i_max {REG_TWIN_IMAX} early_exit={early_exit} "
-              f"batch 8 tile {dec.batch_tile}: outputs, unsatisfied and mean iterations "
-              f"{float(got.iterations):.4f} equal", flush=True)
+    reg_tables = configs["regular_T16_1.05"].tables
     for rule in rules:
         ch = float_llrs(1.7, 4, seed=410, lay=reg_layout)
         dec = FusedFloatDecoder(reg_layout, rule, max_iters=50)

@@ -29,24 +29,44 @@
 // suffix. Padding columns of the last tile hold cluster 0 and take part in
 // the tile's exit test, as in the JAX kernel.
 //
-// What bounds it on this card. One CTA per SM, set by shared memory (WLAN
-// N=1296 at 16 codewords: 169,344 B of views and channel, 18,576 B of
-// routes, 4,656 B of tables and rows). Device memory sees only the clusters
-// in and the decisions out. The work is chains of dependent byte lookups in
-// shared memory: a WLAN |T|=16 body makes 40,986 lookups per codeword
-// (31,698 pairwise, 9,288 alignment), which at one warp-wide access per
-// clock and SM bound a batch-4096, 49-body decode at 0.9965 ms. The previous
-// design (one thread per (node, codeword), 3.1517 ms there on an NVIDIA H100
-// 80GB HBM3 at 700 W) ran at a third of that, held by the latency of its
-// chains rather than by the pipe: a thread had one column's chain in flight,
-// and routes, a runtime division and a partial round per degree group sat
-// around it. What the design does about each candidate:
+// What bounds it on this card (an NVIDIA H100 80GB HBM3 at 700 W). One CTA
+// per SM, set by shared memory. Device memory sees only the clusters in and
+// the decisions out. The work is chains of dependent byte lookups in shared
+// memory: a WLAN |T|=16 body makes 40,986 lookups per codeword (31,698
+// pairwise, 9,288 alignment), which at one warp-wide access per clock and SM
+// bound a batch-4096, 49-body decode at 0.9965 ms. Two paths, chosen per
+// launch from the tables and the carve (lanes_fit; ib_lut_fused.py
+// kernel_shared_bytes mirrors it):
+//   per-lane, where |T| and |T_ch| are at most 16 (WLAN |T|=16 at its tile
+//     of 16: 222,672 B): the views and the channel at 4 bits a message
+//     (84,672 B), the alignment rows, and a copy of the passes' pairwise
+//     tables per lane (LaneLuts, 131,072 B, K5b's and K3's layout), so that
+//     a lookup is one multiply-add and one load from the lane's own bank;
+//     the routes are read as uint16 from device memory (L1), and each stage
+//     of the tables goes through one of two 3,248-byte buffers;
+//   per block, otherwise (WLAN |T|=32 at 16: 206,064 B, of which 169,344 B
+//     views and channel, 18,576 B uint16 routes, 18,016 B tables and rows;
+//     regular N=8000 at tile 4: 225,968 B, 192,000 B of views and channel,
+//     the routes read as int32 from device memory): byte views and one byte
+//     copy of each table per block. A per-lane copy of a 1 KB |T|=32 table
+//     takes 32 KB, and no two of them fit beside the views.
+// Measured on WLAN |T|=16 at batch 4096, 49 bodies (CUDA events): the
+// per-block path took 2.4028 ms. The same kernel with every pairwise lookup
+// sent to one per-lane copy (results not kept) took 1.7709 ms: bank
+// conflicts were 26% of its time, as random lanes meet in a bank of a
+// 256-byte table (64 words over 32 banks) twice as often as not, and the
+// chains' latency and issue the rest. The per-lane path takes 1.8253 ms,
+// bit for bit the per-block path's result; staging its tables (160 KB of
+// shared-memory stores a body and tile) costs it 0.13 ms against the same
+// kernel that stages them once. Staged at the start of each pass, as the
+// per-block path stages, they cost 0.27 ms: every warp waited on the loads
+// and the stores before its first lookup. At tile 8 the per-block path is
+// slower (2.6705 ms; per-lane 2.1607), so the tile stays 16.
+// The design against each candidate limit of the per-block path:
 //   (1) routes: staged once per tile into shared memory as uint16 where they
-//       fit beside the views (WLAN |T|=16 and 32: 18,576 B), so no route is
-//       read from device memory inside an iteration; on regular N=8000
-//       (tile 4: 192,000 B of views, 96,000 B of routes) they do not fit and
-//       are read from device memory as int32 (nibble-packed views would make
-//       room; not needed elsewhere, not done);
+//       fit beside the views (WLAN |T|=32: 18,576 B), so no route is read
+//       from device memory inside an iteration there; on regular N=8000
+//       (tile 4: 96,000 B of routes) they do not fit and are read as int32;
 //   (2)+(3) division and rounds: a block runs q * (bt / V) threads; a
 //       thread keeps V codeword columns c0 .. c0+V-1 for the whole decode
 //       and steps q nodes at a time, flat over all degree groups of a pass
@@ -54,27 +74,23 @@
 //       item. Splitting WLAN's degree-11 variable nodes into two items (each
 //       recomputing its prefix) was measured and lost: the tail it removes
 //       costs less than the lookups and loads it adds;
-//   (4) bank conflicts: the tables stay one byte copy per block. Nibble-
-//       packed tables at |T| <= 16 (128 B, one word per bank, conflict-free)
-//       lost to them once each thread had four chains in flight: their
-//       extraction lengthens every chain step more than the conflicts cost.
-//       At |T|=32 a second table copy per half-warp lost too;
+//   (4) bank conflicts: two earlier conflict-free layouts lost, nibble-packed
+//       tables at |T| <= 16 (their extraction lengthened every chain step)
+//       and a second copy per half-warp at |T|=32; the per-lane copies win
+//       where the views at 4 bits make room for them;
 //   (5) wider work: V = 4 columns per thread where 4 divides the tile (else
-//       1). A message row is one 32-bit load, a routed output one 32-bit
-//       store, a route read once per four columns, and the four columns'
-//       folds are unrolled side by side, four independent chains per thread.
-//       This is what moved K1 most. Threads per CTA are the most at which no
-//       instantiation spills (chip_smoke.py phase 2 prints ptxas's lines):
-//       640 at V = 4 (96 registers; 768 spill), 1024 at V = 1.
-// Two barriers a body: the next pass's tables are staged during the pass
-// before it, and the exit test is the barrier after the CN pass.
-// On the same card (cli/kernel_times.py, the previous design in the same
-// call): WLAN |T|=16 at batch 4096, 49 bodies, 3.1476 -> 2.4400 ms (2.45x
-// the lookup bound; the chains' latency and the byte tables' conflicts,
-// not measured apart, hold it now); at 2.4 dB with early exit 2.6577 ->
-// 1.8386 ms; WLAN
-// |T|=32 at batch 2048 2.2974 -> 2.0302 ms; regular N=8000 at batch 512,
-// tile 4, i_max 250 8.6143 -> 5.6651 ms.
+//       1). A message row is one 32-bit (16-bit at 4 bits) load, a routed
+//       output one store, a route read once per four columns, and the four
+//       columns' folds are unrolled side by side, four independent chains
+//       per thread. Threads per CTA are the most at which no instantiation
+//       spills (chip_smoke.py phase 2 prints ptxas's lines): 640 at V = 4
+//       (96 registers; 768 spill), 1024 at V = 1.
+// Two barriers a body; the exit test is the barrier after the CN pass.
+// Earlier designs on the same card (cli/kernel_times.py): the first one
+// thread per (node, codeword), WLAN |T|=16 at batch 4096, 49 bodies, 3.1476
+// ms; the per-block design 2.4400 ms, at 2.4 dB with early exit 1.8386
+// ms; WLAN |T|=32 at batch 2048 2.2974 -> 2.0302 ms; regular N=8000 at batch
+// 512, tile 4, i_max 250 8.6143 -> 5.6651 ms.
 
 #include <cuda_runtime.h>
 
@@ -88,6 +104,14 @@ namespace {
 
 constexpr int kMaxDegree = 16;
 constexpr size_t kMaxShared = 232448;  // ib_lut_fused.py:MAX_SHARED_BYTES
+// The per-lane tables (LaneLuts): 16 byte positions in 4 groups, a group 256
+// entries of 32 lanes' words; |T| and |T_ch| at most 16, so an entry
+// a * stride + b is below 256 and a message fits 4 bits.
+constexpr int kLanePositions = 16;
+constexpr int kLaneEntries = 256;
+constexpr int kLaneGroupBytes = kLaneEntries * 128;
+constexpr size_t kLaneBytes = kLanePositions / 4 * kLaneGroupBytes;  // 131,072
+constexpr int kLaneMaxT = 16;
 // Threads per CTA at V columns per thread: the most at which ptxas spills
 // nothing (V = 4: 96 registers; 768 threads, 80 registers, spill).
 template <int V>
@@ -108,6 +132,12 @@ struct Params {
   const int32_t* vn_route;    // [n_edges] VN-view row -> CN-view row
   const uint16_t* cn_route16; // the same as uint16 (null if n_edges > 65536)
   const uint16_t* vn_route16;
+  // The per-lane tables' stages, [i_max][stage words] each (ib_lut_fused.py
+  // lane_words): a stage's groups of words ([groups][kLaneEntries]; a CN
+  // stage's from the first group, a VN stage's to the last), then its
+  // alignment rows padded to 16 bytes; null where the tables take none.
+  const uint32_t* lane_cn;
+  const uint32_t* lane_vn;
   const int32_t* cn_groups;   // [n_cn_groups, 3] (offset, num_nodes, degree)
   const int32_t* vn_groups;   // [n_vn_groups, 4] (offset, num_nodes, degree, node offset)
   int n_cn_groups, n_vn_groups;
@@ -137,12 +167,60 @@ __host__ __device__ inline bool routes_fit(const Params& p) {
   return p.cn_route16 != nullptr && route_offset(p) + 4 * size_t(p.n_edges) <= kMaxShared;
 }
 
+// Slots of the per-lane tables' VN positions: the VN pass's LUTs 0 .. d_v-2
+// (the decision's last one stays per block).
+__host__ __device__ inline int lane_vn_slots(const Params& p) { return p.d_v_max - 1; }
+
+// The per-lane path's carve before its tables: unsat counts, views A, B and
+// the channel at 4 bits a message, the alignment rows, 16-byte aligned.
+__host__ __device__ inline size_t lane_offset(const Params& p) {
+  return (2 * sizeof(int) * p.bt + size_t(2 * p.n_edges + p.n_vars) * p.bt / 2
+          + size_t(p.d_c_max + p.d_v_max) * p.t_decoder + 15) / 16 * 16;
+}
+
+// Groups of a CN and of a VN stage, and the first group of a VN stage.
+__host__ __device__ inline int lane_cn_groups(const Params& p) { return (p.n_cn_slots + 3) / 4; }
+__host__ __device__ inline int lane_vn_group0(const Params& p) {
+  return (kLanePositions - lane_vn_slots(p)) / 4;
+}
+// Bytes of a stage as lane_cn / lane_vn hold it: its groups' words, then its
+// alignment rows padded to 16 bytes.
+__host__ __device__ inline int lane_stage_bytes(int groups, int row_bytes) {
+  return groups * kLaneEntries * 4 + (row_bytes + 15) / 16 * 16;
+}
+__host__ __device__ inline int lane_cn_stage(const Params& p) {
+  return lane_stage_bytes(lane_cn_groups(p), p.d_c_max * p.t_decoder);
+}
+__host__ __device__ inline int lane_vn_stage(const Params& p) {
+  return lane_stage_bytes(kLanePositions / 4 - lane_vn_group0(p), p.d_v_max * p.t_decoder);
+}
+// The two buffers of stages in flight, after the per-lane tables.
+__host__ __device__ inline size_t lane_buffer_bytes(const Params& p) {
+  const int cn = lane_cn_stage(p), vn = lane_vn_stage(p);
+  return size_t(cn > vn ? cn : vn);
+}
+__host__ __device__ inline size_t lane_carve(const Params& p) {
+  return lane_offset(p) + kLaneBytes + 2 * lane_buffer_bytes(p);
+}
+
+// Whether the tile runs on per-lane tables: the words exist (|T|, |T_ch| <= 16,
+// the CN and VN slots within 16 positions), 4 columns a thread, and the carve
+// fits.
+__host__ __device__ inline bool lanes_fit(const Params& p) {
+  return p.lane_cn != nullptr && p.cn_route16 != nullptr && p.t_decoder <= kLaneMaxT
+         && p.t_channel <= kLaneMaxT && p.bt % 4 == 0
+         && p.n_cn_slots + lane_vn_slots(p) <= kLanePositions
+         && size_t(p.n_vn_slots) * p.slot <= kLaneBytes && lane_carve(p) <= kMaxShared;
+}
+
 // K1's carve; ib_lut_fused.py:kernel_shared_bytes mirrors it.
 __host__ __device__ inline size_t shared_bytes(const Params& p) {
+  if (lanes_fit(p)) return lane_carve(p);
   return routes_fit(p) ? route_offset(p) + 4 * size_t(p.n_edges) : carve_bytes(p);
 }
 
-// Routes in shared memory (uint16) or device memory (int32).
+// Routes in shared memory (uint16) or device memory (int32, or uint16 on the
+// per-lane path).
 struct SharedRoutes {
   const uint16_t* r;
   __device__ __forceinline__ int operator[](int i) const { return r[i]; }
@@ -151,44 +229,75 @@ struct GlobalRoutes {
   const int32_t* r;
   __device__ __forceinline__ int operator[](int i) const { return __ldg(&r[i]); }
 };
+struct GlobalRoutes16 {
+  const uint16_t* r;
+  __device__ __forceinline__ int operator[](int i) const { return __ldg(&r[i]); }
+};
 
-// V columns of a view row: one byte (V = 1) or one 32-bit word (V = 4).
-template <int V>
+// Pairwise LUTs of one pass with a copy per lane, the layout of K5b's
+// lookup2d_lanes (peaks.cu) and K3's LaneLuts (ib_lut_hbm.cu): lane l's copy
+// of entry x at byte position q is byte q % 4 of word
+// ((q / 4) * kLaneEntries + x) * 32 + l, so each lane reads only its own bank.
+// The CN pass's slot s sits at position s, the VN pass's at 15 - s: the two
+// passes share no byte, and a slot's offset is a constant. A lookup is one
+// multiply-add, a * 128 stride on the lane's row of b, and one load.
+template <bool VN>
+struct LaneLuts {
+  const uint8_t* base;
+  uint32_t lane;  // 4 * lane
+  int stride128;  // 128 x the tables' row stride
+  __device__ __forceinline__ uint8_t operator()(int l, int a, int b) const {
+    const int q = VN ? kLanePositions - 1 - l : l;
+    return base[a * stride128 + ib_lut::lane_row(lane, b) + (q >> 2) * kLaneGroupBytes
+                + (q & 3)];
+  }
+};
+
+// V columns of a view row at BITS bits a message: one byte (V = 1), one
+// 32-bit word (V = 4, bytes) or one 16-bit half (V = 4, 4 bits).
+template <int V, int BITS>
 struct Cols {
-  static_assert(V == 1 || V == 4, "1 or 4 columns per thread");
-  using W = std::conditional_t<V == 4, uint32_t, uint8_t>;
+  static_assert((V == 1 && BITS == 8) || (V == 4 && (BITS == 8 || BITS == 4)),
+                "1 or 4 columns per thread; 4 at 4 bits");
+  using W = std::conditional_t<V * BITS == 32, uint32_t,
+                               std::conditional_t<V * BITS == 16, uint16_t, uint8_t>>;
+  // Bytes of `cols` columns: a row's length, a thread's first column's offset.
+  static __host__ __device__ __forceinline__ int bytes(int cols) { return cols * BITS / 8; }
   static __device__ __forceinline__ W load(const uint8_t* p) {
     return *reinterpret_cast<const W*>(p);
   }
   static __device__ __forceinline__ void store(uint8_t* p, W w) {
     *reinterpret_cast<W*>(p) = w;
   }
-  static __device__ __forceinline__ uint8_t get(W w, int v) { return uint8_t(w >> (8 * v)); }
-  static __device__ __forceinline__ W put(uint8_t x, int v) { return W(W(x) << (8 * v)); }
+  static __device__ __forceinline__ uint8_t get(W w, int v) {
+    return uint8_t((w >> (BITS * v)) & ((1u << BITS) - 1));
+  }
+  static __device__ __forceinline__ W put(uint8_t x, int v) { return W(W(x) << (BITS * v)); }
 };
 
 // A thread's place in every pass: columns c0 .. c0+V-1 and first item
-// `item0`; it steps `q` items at a time.
+// `item0`; it steps `q` items at a time. `rb` is a view row's bytes, `cb`
+// the byte offset of column c0 in it.
 struct Walk {
-  int item0, q, c0;
+  int item0, q, c0, rb, cb;
 };
 
 // One check node of degree D at local index `ln` of its group, columns c0..:
 // leave-one-out, aligned, routed into dst; cnt[v] counts its odd parity.
 // The V columns' folds are unrolled side by side: V independent lookup
 // chains in flight per thread.
-template <int D, int V, class Route>
+template <int D, int V, int BITS, class Route, class Lut>
 __device__ __forceinline__ void cn_item(const uint8_t* __restrict__ src,
-                                        uint8_t* __restrict__ dst, ib_lut::Luts lut,
+                                        uint8_t* __restrict__ dst, Lut lut,
                                         const uint8_t* __restrict__ match_row, Route route,
-                                        int off, int n, int ln, int bt, int c0, int thresh,
+                                        int off, int n, int ln, Walk w, int thresh,
                                         int (&cnt)[V]) {
-  using C = Cols<V>;
-  typename C::W w[D], o[D];
-  const uint8_t* in = src + (off + ln) * bt + c0;
+  using C = Cols<V, BITS>;
+  typename C::W x[D], o[D];
+  const uint8_t* in = src + (off + ln) * w.rb + w.cb;
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    w[k] = C::load(in + k * n * bt);
+    x[k] = C::load(in + k * n * w.rb);
     o[k] = 0;
   }
 #pragma unroll
@@ -197,7 +306,7 @@ __device__ __forceinline__ void cn_item(const uint8_t* __restrict__ src,
     int parity = 0;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      m[k] = C::get(w[k], v);
+      m[k] = C::get(x[k], v);
       parity ^= int(m[k] < thresh);
     }
     cnt[v] += parity;
@@ -206,49 +315,49 @@ __device__ __forceinline__ void cn_item(const uint8_t* __restrict__ src,
     for (int k = 0; k < D; ++k) o[k] |= C::put(match_row[out[k]], v);
   }
 #pragma unroll
-  for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * bt + c0, o[k]);
+  for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * w.rb + w.cb, o[k]);
 }
 
 // One variable node of degree D (channel row `chg_row`), columns c0..:
 // leave-one-out, aligned, routed into dst; degree 1 forwards the channel,
 // unaligned.
-template <int D, int V, class Route>
+template <int D, int V, int BITS, class Route, class Lut>
 __device__ __forceinline__ void vn_item(const uint8_t* __restrict__ src,
                                         uint8_t* __restrict__ dst,
-                                        const uint8_t* __restrict__ chg_row, ib_lut::Luts lut,
+                                        const uint8_t* __restrict__ chg_row, Lut lut,
                                         const uint8_t* __restrict__ match_row, Route route,
-                                        int off, int n, int ln, int bt, int c0) {
-  using C = Cols<V>;
-  const typename C::W chw = C::load(chg_row + c0);
+                                        int off, int n, int ln, Walk w) {
+  using C = Cols<V, BITS>;
+  const typename C::W chw = C::load(chg_row + w.cb);
   if constexpr (D == 1) {
-    C::store(dst + route[off + ln] * bt + c0, chw);
+    C::store(dst + route[off + ln] * w.rb + w.cb, chw);
   } else {
-    typename C::W w[D], o[D];
-    const uint8_t* in = src + (off + ln) * bt + c0;
+    typename C::W x[D], o[D];
+    const uint8_t* in = src + (off + ln) * w.rb + w.cb;
 #pragma unroll
     for (int k = 0; k < D; ++k) {
-      w[k] = C::load(in + k * n * bt);
+      x[k] = C::load(in + k * n * w.rb);
       o[k] = 0;
     }
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       uint8_t m[D], out[D];
 #pragma unroll
-      for (int k = 0; k < D; ++k) m[k] = C::get(w[k], v);
+      for (int k = 0; k < D; ++k) m[k] = C::get(x[k], v);
       ib_lut::vn_fold<D>(C::get(chw, v), m, out, lut);
 #pragma unroll
       for (int k = 0; k < D; ++k) o[k] |= C::put(match_row[out[k]], v);
     }
 #pragma unroll
-    for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * bt + c0, o[k]);
+    for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * w.rb + w.cb, o[k]);
   }
 }
 
 // CN pass A -> B over every check group, flat: a thread's node carries from
 // one group to the next. With `unsat`, adds this thread's odd-parity counts
 // per column and returns whether it had any.
-template <int V, class Route>
-__device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, ib_lut::Luts lut,
+template <int V, int BITS, class Route, class Lut>
+__device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, Lut lut,
                         const uint8_t* match, Route route, int* unsat, Walk w) {
   int cnt[V] = {};
   int node = w.item0, first = 0;  // `first`: the group's first node
@@ -260,8 +369,8 @@ __device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, ib_lut::L
 #define K1_CN_CASE(D)                                                                   \
   case D:                                                                               \
     for (; node < end; node += w.q)                                                     \
-      cn_item<D, V>(A, B, lut, row, route, off, n, node - first, p.bt, w.c0,            \
-                    p.t_decoder / 2, cnt);                                              \
+      cn_item<D, V, BITS>(A, B, lut, row, route, off, n, node - first, w,               \
+                          p.t_decoder / 2, cnt);                                        \
     break;
       IB_DEGREES_2_TO_16(K1_CN_CASE)
 #undef K1_CN_CASE
@@ -282,11 +391,10 @@ __device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, ib_lut::L
 }
 
 // VN pass B -> A over every variable group, flat, with the channel clusters
-// `chg` ([n_vars][bt], group order).
-template <int V, class Route>
+// `chg` ([n_vars][row], group order).
+template <int V, int BITS, class Route, class Lut>
 __device__ void vn_pass(const Params& p, const uint8_t* B, uint8_t* A, const uint8_t* chg,
-                        ib_lut::Luts lut, const uint8_t* match, Route route, Walk w) {
-  const int bt = p.bt;
+                        Lut lut, const uint8_t* match, Route route, Walk w) {
   int node = w.item0;
   for (int k = 0; k < p.n_vn_groups; ++k) {
     const int off = p.vn_groups[4 * k], n = p.vn_groups[4 * k + 1];
@@ -296,8 +404,8 @@ __device__ void vn_pass(const Params& p, const uint8_t* B, uint8_t* A, const uin
 #define K1_VN_CASE(D)                                                                   \
   case D:                                                                               \
     for (; node < end; node += w.q)                                                     \
-      vn_item<D, V>(B, A, chg + node * bt, lut, row, route, off, n, node - first, bt,   \
-                    w.c0);                                                              \
+      vn_item<D, V, BITS>(B, A, chg + node * w.rb, lut, row, route, off, n, node - first, \
+                          w);                                                           \
     break;
       K1_VN_CASE(1)
       IB_DEGREES_2_TO_16(K1_VN_CASE)
@@ -310,22 +418,21 @@ __device__ void vn_pass(const Params& p, const uint8_t* B, uint8_t* A, const uin
 
 // Decision fold of every variable node (channel plus all messages), written
 // to outputs[var][batch] at the thread's real columns.
-template <int V>
+template <int V, int BITS>
 __device__ void decide_pass(const Params& p, const uint8_t* B, const uint8_t* chg,
                             ib_lut::Luts lut, int b0, Walk w) {
-  using C = Cols<V>;
-  const int bt = p.bt;
+  using C = Cols<V, BITS>;
   int node = w.item0;
   for (int k = 0; k < p.n_vn_groups; ++k) {
     const int off = p.vn_groups[4 * k], n = p.vn_groups[4 * k + 1];
     const int d = p.vn_groups[4 * k + 2], first = p.vn_groups[4 * k + 3], end = first + n;
     for (; node < end; node += w.q) {
-      const uint8_t* in = B + (off + node - first) * bt + w.c0;
-      const typename C::W chw = C::load(chg + node * bt + w.c0);
+      const uint8_t* in = B + (off + node - first) * w.rb + w.cb;
+      const typename C::W chw = C::load(chg + node * w.rb + w.cb);
       int32_t* out = p.outputs + size_t(__ldg(&p.node_var[node])) * p.batch + b0 + w.c0;
       for (int v = 0; v < V && b0 + w.c0 + v < p.batch; ++v) {
-        uint8_t s = lut(0, C::get(chw, v), in[v]);
-        for (int j = 1; j < d; ++j) s = lut(j, s, in[j * n * bt + v]);
+        uint8_t s = lut(0, C::get(chw, v), C::get(C::load(in), v));
+        for (int j = 1; j < d; ++j) s = lut(j, s, C::get(C::load(in + j * n * w.rb), v));
         out[v] = s;
       }
     }
@@ -336,47 +443,149 @@ __device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* __restrict__ 
   for (int t = threadIdx.x; t < n; t += blockDim.x) dst[t] = __ldg(&src[t]);
 }
 
+// A stage of the per-lane tables moves in two steps, so that neither the
+// latency of device memory nor the stores sit at a pass's start, where every
+// warp of the block would wait on them: `copy_stage` starts an asynchronous
+// copy of the stage as lane_cn / lane_vn hold it into a buffer of shared
+// memory (cp.async, 16 bytes a thread, no registers held) at the start of the
+// pass two before the one that reads it; `spread_stage` writes the buffer's
+// words to the 32 lanes' copies, a word for four lanes with one 16-byte
+// store (a warp the copies of four entries), and its alignment rows, at the
+// end of the pass before, while the block's last warps still look up. A
+// group that the other pass also reads holds its bytes unchanged in the
+// words.
+__device__ __forceinline__ void copy_stage(uint8_t* buf, const uint32_t* __restrict__ src,
+                                           int bytes) {
+  for (int c = threadIdx.x; c < bytes / 16; c += blockDim.x) {
+    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(buf + 16 * c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src + 4 * c));
+  }
+}
+
+// Waits for this thread's copies; the barrier after it shows them to the block.
+__device__ __forceinline__ void copy_wait() { asm volatile("cp.async.wait_all;" ::: "memory"); }
+
+__device__ __forceinline__ void spread_stage(uint8_t* L, const uint8_t* buf, int g0, int groups,
+                                             uint8_t* rows, int row_bytes) {
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(buf);
+  uint4* dst = reinterpret_cast<uint4*>(L + g0 * kLaneGroupBytes);
+  for (int i = threadIdx.x; i < 8 * kLaneEntries * groups; i += blockDim.x) {
+    const uint32_t v = words[i >> 3];
+    dst[i] = make_uint4(v, v, v, v);
+  }
+  const uint8_t* src_rows = buf + groups * kLaneEntries * 4;
+  for (int t = threadIdx.x; t < row_bytes; t += blockDim.x) rows[t] = src_rows[t];
+}
+
 // The seed rows: row r of `dst` at the thread's columns <- the channel
 // cluster of variable var[r] (padding columns 0).
-template <int V>
+template <int V, int BITS>
 __device__ void seed_rows(const Params& p, uint8_t* dst, const int32_t* __restrict__ var,
                           int rows, int b0, Walk w) {
-  using C = Cols<V>;
+  using C = Cols<V, BITS>;
   for (int r = w.item0; r < rows; r += w.q) {
     const int32_t* x = p.clusters + size_t(__ldg(&var[r])) * p.batch + b0 + w.c0;
     typename C::W word = 0;
 #pragma unroll
     for (int v = 0; v < V; ++v)
       if (b0 + w.c0 + v < p.batch) word |= C::put(uint8_t(x[v]), v);
-    C::store(dst + r * p.bt + w.c0, word);
+    C::store(dst + r * w.rb + w.cb, word);
   }
 }
 
-template <bool SROUTES, int V>
+// LANES: views at 4 bits a message, the pairwise LUTs of the passes per lane
+// (staged from lane_cn / lane_vn), routes read as uint16 from device memory.
+template <bool SROUTES, int V, bool LANES>
 __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
-  using Route = std::conditional_t<SROUTES, SharedRoutes, GlobalRoutes>;
+  static_assert(!LANES || (V == 4 && !SROUTES), "the per-lane path: 4 columns, device routes");
+  constexpr int BITS = LANES ? 4 : 8;
+  using C = Cols<V, BITS>;
+  using Route = std::conditional_t<
+      LANES, GlobalRoutes16, std::conditional_t<SROUTES, SharedRoutes, GlobalRoutes>>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int bt = p.bt;
   const int b0 = blockIdx.x * bt;
+  const int rb = C::bytes(bt);
   int* unsat = reinterpret_cast<int*>(smem);  // [2][bt], by body parity
-  uint8_t* A = smem + 2 * sizeof(int) * bt;   // CN view [n_edges][bt]
-  uint8_t* B = A + p.n_edges * bt;            // VN view [n_edges][bt]
-  uint8_t* CHG = B + p.n_edges * bt;          // channel [n_vars][bt]
-  uint8_t* TC = CHG + p.n_vars * bt;           // CN LUTs of this iteration
-  uint8_t* TV = TC + p.n_cn_slots * p.slot;    // VN LUTs of this iteration
-  uint8_t* MC = TV + p.n_vn_slots * p.slot;    // CN alignment rows
-  uint8_t* MV = MC + p.d_c_max * p.t_decoder;  // VN alignment rows
+  uint8_t* A = smem + 2 * sizeof(int) * bt;   // CN view [n_edges][rb]
+  uint8_t* B = A + p.n_edges * rb;            // VN view [n_edges][rb]
+  uint8_t* CHG = B + p.n_edges * rb;          // channel [n_vars][rb]
+  // Per-block path: this iteration's CN and VN LUTs, then the alignment rows.
+  // Per-lane path: the alignment rows, then the per-lane LUTs (L); the
+  // decision's VN LUTs (TV) reuse L after the last body.
+  uint8_t* TC = CHG + p.n_vars * rb;
+  uint8_t* TV = TC + p.n_cn_slots * p.slot;
+  uint8_t* MC = LANES ? TC : TV + p.n_vn_slots * p.slot;
+  uint8_t* MV = MC + p.d_c_max * p.t_decoder;
+  uint8_t* L = smem + lane_offset(p);
+  if constexpr (LANES) TV = L;
   uint16_t* R = reinterpret_cast<uint16_t*>(smem + route_offset(p));  // routes, if staged
 
   const int cn_stage = p.n_cn_slots * p.slot;
   const int vn_stage = p.n_vn_slots * p.slot;
   const int mc_stage = p.d_c_max * p.t_decoder;
   const int mv_stage = p.d_v_max * p.t_decoder;
-  const ib_lut::Luts cn_lut0{TC, p.slot, p.t_channel};  // iteration-0 tables: [.., Tch]
-  const ib_lut::Luts cn_lut{TC, p.slot, p.t_decoder};
-  const ib_lut::Luts vn_lut{TV, p.slot, p.t_decoder};
+  const uint32_t lane4 = 4u * (threadIdx.x & 31);
+  // iteration-0 CN tables: [.., Tch]
+  const auto cn_lut0 = [&] {
+    if constexpr (LANES) return LaneLuts<false>{L, lane4, 128 * p.t_channel};
+    else return ib_lut::Luts{TC, p.slot, p.t_channel};
+  }();
+  const auto cn_lut = [&] {
+    if constexpr (LANES) return LaneLuts<false>{L, lane4, 128 * p.t_decoder};
+    else return ib_lut::Luts{TC, p.slot, p.t_decoder};
+  }();
+  const auto vn_lut = [&] {
+    if constexpr (LANES) return LaneLuts<true>{L, lane4, 128 * p.t_decoder};
+    else return ib_lut::Luts{TV, p.slot, p.t_decoder};
+  }();
+  // The passes in order: P = 0 the iteration-0 CN pass, then body i's VN
+  // pass 2i + 1 and CN pass 2i + 2; the last is 2 imax - 2. Pass P reads the
+  // tables of its stage P, which is CN(P / 2) for even P, VN((P - 1) / 2)
+  // for odd; every stage but the first is staged during the pass before.
+  const int last = 2 * p.imax - 2;
+  const int cn_groups = lane_cn_groups(p), vn_group0 = lane_vn_group0(p);
+  const int cn_bytes = lane_cn_stage(p), vn_bytes = lane_vn_stage(p);
+  uint8_t* buf[2] = {L + kLaneBytes, L + kLaneBytes + lane_buffer_bytes(p)};
+  const auto copy = [&](int P) {  // stage P into buffer P % 2
+    if (P & 1)
+      copy_stage(buf[1], p.lane_vn + size_t(P / 2) * (vn_bytes / 4), vn_bytes);
+    else
+      copy_stage(buf[0], p.lane_cn + size_t(P / 2) * (cn_bytes / 4), cn_bytes);
+  };
+  const auto spread = [&](int P) {  // stage P from buffer P % 2
+    if (P & 1)
+      spread_stage(L, buf[1], vn_group0, kLanePositions / 4 - vn_group0, MV, mv_stage);
+    else
+      spread_stage(L, buf[0], 0, cn_groups, MC, mc_stage);
+  };
+  // Work of pass P's start and end besides its nodes. Per block: the next
+  // stage at the start, the pass before it having read the slots it
+  // overwrites (and the decision's VN tables after the last, where no pass
+  // follows). Per lane: the copy of stage P + 2 (into the buffer stage P
+  // left) at the start, the spread of stage P + 1 at the end.
+  const auto begin = [&](int P) {
+    if constexpr (LANES) {
+      if (P + 2 <= last) copy(P + 2);
+    } else if (P & 1) {
+      stage(TC, p.cn_tab + size_t(P / 2 + 1) * cn_stage, cn_stage);
+      stage(MC, p.match_cn + size_t(P / 2 + 1) * mc_stage, mc_stage);
+    } else {
+      stage(TV, p.vn_tab + size_t(P / 2) * vn_stage, vn_stage);
+      stage(MV, p.match_vn + size_t(P / 2) * mv_stage, mv_stage);
+    }
+  };
+  const auto end = [&](int P) {
+    if constexpr (LANES) {
+      if (P + 1 <= last) spread(P + 1);
+      copy_wait();
+    }
+  };
   Route cn_route, vn_route;
-  if constexpr (SROUTES) {
+  if constexpr (LANES) {
+    cn_route = Route{p.cn_route16};
+    vn_route = Route{p.vn_route16};
+  } else if constexpr (SROUTES) {
     for (int t = threadIdx.x; t < 2 * p.n_edges; t += blockDim.x)
       R[t] = t < p.n_edges ? p.cn_route16[t] : p.vn_route16[t - p.n_edges];
     cn_route = Route{R};
@@ -387,42 +596,56 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
   }
   // The launch has q * (bt / V) threads: one division per thread and launch.
   const int lanes = bt / V;
-  const Walk w{int(threadIdx.x) / lanes, int(blockDim.x) / lanes,
-               int(threadIdx.x) % lanes * V};
+  const int c0 = int(threadIdx.x) % lanes * V;
+  const Walk w{int(threadIdx.x) / lanes, int(blockDim.x) / lanes, c0, rb, C::bytes(c0)};
 
-  seed_rows<V>(p, A, p.seed_var, p.n_edges, b0, w);
-  seed_rows<V>(p, CHG, p.node_var, p.n_vars, b0, w);
-  stage(TC, p.cn_tab, cn_stage);
-  stage(MC, p.match_cn, mc_stage);
+  if constexpr (LANES) {
+    copy(0);
+    if (last >= 1) copy(1);
+  }
+  seed_rows<V, BITS>(p, A, p.seed_var, p.n_edges, b0, w);
+  seed_rows<V, BITS>(p, CHG, p.node_var, p.n_vars, b0, w);
+  if constexpr (LANES) {
+    copy_wait();
+    __syncthreads();
+    spread(0);
+  } else {
+    stage(TC, p.cn_tab, cn_stage);
+    stage(MC, p.match_cn, mc_stage);
+  }
   __syncthreads();
-  // During each pass the tables of the next one are staged: the pass before
-  // it, which read the slots they overwrite, ended at the last barrier.
-  stage(TV, p.vn_tab, vn_stage);
-  stage(MV, p.match_vn, mv_stage);
+  begin(0);
   for (int c = threadIdx.x; c < bt; c += blockDim.x) unsat[c] = 0;
-  cn_pass<V>(p, A, B, cn_lut0, MC, cn_route, nullptr, w);
+  cn_pass<V, BITS>(p, A, B, cn_lut0, MC, cn_route, nullptr, w);
+  end(0);
   __syncthreads();
 
   int iters = 0;
   for (int i = 0; i < p.imax - 1; ++i) {
     int* u = unsat + (i & 1) * bt;
-    stage(TC, p.cn_tab + size_t(i + 1) * cn_stage, cn_stage);
-    stage(MC, p.match_cn + size_t(i + 1) * mc_stage, mc_stage);
-    vn_pass<V>(p, B, A, CHG, vn_lut, MV, vn_route, w);
+    begin(2 * i + 1);
+    vn_pass<V, BITS>(p, B, A, CHG, vn_lut, MV, vn_route, w);
+    end(2 * i + 1);
     __syncthreads();
-    stage(TV, p.vn_tab + size_t(i + 1) * vn_stage, vn_stage);
-    stage(MV, p.match_vn + size_t(i + 1) * mv_stage, mv_stage);
+    begin(2 * i + 2);
     // The other buffer is the next body's: this body's counts stay for the
     // report.
     for (int c = threadIdx.x; c < bt; c += blockDim.x) unsat[((i + 1) & 1) * bt + c] = 0;
-    const bool odd = cn_pass<V>(p, A, B, cn_lut, MC, cn_route, u, w);
+    const bool odd = cn_pass<V, BITS>(p, A, B, cn_lut, MC, cn_route, u, w);
+    end(2 * i + 2);
     iters = i + 1;
     // The predicate is OR-ed over the block: every thread takes the same branch.
     if (!__syncthreads_or(odd) && p.early_exit) break;
   }
 
-  // TV holds the VN tables of iteration `iters`, staged during the last pass.
-  decide_pass<V>(p, B, CHG, vn_lut, b0, w);
+  // Per-block path: TV holds the VN tables of iteration `iters`, staged
+  // during the last pass. Per-lane path: they are staged now, over the
+  // per-lane tables that no pass reads any more.
+  if constexpr (LANES) {
+    stage(TV, p.vn_tab + size_t(iters) * vn_stage, vn_stage);
+    __syncthreads();
+  }
+  decide_pass<V, BITS>(p, B, CHG, ib_lut::Luts{TV, p.slot, p.t_decoder}, b0, w);
   for (int c = threadIdx.x; c < bt; c += blockDim.x) {
     if (b0 + c >= p.batch) continue;
     p.unsat_out[b0 + c] = iters == 0 ? 1 : unsat[((iters - 1) & 1) * bt + c];
@@ -430,9 +653,9 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
   }
 }
 
-template <bool SROUTES, int V>
+template <bool SROUTES, int V, bool LANES>
 int launch(const Params& p, cudaStream_t stream) {
-  const auto kernel = ib_lut_fused_kernel<SROUTES, V>;
+  const auto kernel = ib_lut_fused_kernel<SROUTES, V, LANES>;
   const size_t smem = shared_bytes(p);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -446,7 +669,8 @@ int launch(const Params& p, cudaStream_t stream) {
 
 template <bool SROUTES>
 int launch_v(const Params& p, cudaStream_t stream) {
-  return p.bt % 4 == 0 ? launch<SROUTES, 4>(p, stream) : launch<SROUTES, 1>(p, stream);
+  return p.bt % 4 == 0 ? launch<SROUTES, 4, false>(p, stream)
+                       : launch<SROUTES, 1, false>(p, stream);
 }
 
 }  // namespace
@@ -461,6 +685,7 @@ int ib_lut_fused_decode(const int32_t* clusters, int32_t* outputs, int32_t* unsa
                         const int32_t* seed_var, const int32_t* node_var,
                         const int32_t* cn_route, const int32_t* vn_route,
                         const uint16_t* cn_route16, const uint16_t* vn_route16,
+                        const uint32_t* lane_cn, const uint32_t* lane_vn,
                         const int32_t* cn_groups, const int32_t* vn_groups,
                         int n_cn_groups, int n_vn_groups, int n_vars, int n_edges,
                         int batch, int bt, int t_channel, int t_decoder,
@@ -468,18 +693,20 @@ int ib_lut_fused_decode(const int32_t* clusters, int32_t* outputs, int32_t* unsa
                         int d_v_max, int imax, int early_exit, void* stream) {
   Params p{clusters,    outputs,     unsat_out,  iters_out,  cn_tab,      vn_tab,
            match_cn,    match_vn,    seed_var,   node_var,   cn_route,    vn_route,
-           cn_route16,  vn_route16,  cn_groups,  vn_groups,  n_cn_groups, n_vn_groups,
-           n_vars,      n_edges,     batch,      bt,         t_channel,   t_decoder,
-           n_cn_slots,  n_vn_slots,  slot,       d_c_max,    d_v_max,     imax,
-           early_exit};
+           cn_route16,  vn_route16,  lane_cn,    lane_vn,    cn_groups,   vn_groups,
+           n_cn_groups, n_vn_groups, n_vars,     n_edges,    batch,       bt,
+           t_channel,   t_decoder,   n_cn_slots, n_vn_slots, slot,        d_c_max,
+           d_v_max,     imax,        early_exit};
   if (bt < 1) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (lanes_fit(p)) return launch<false, 4, true>(p, s);
   return routes_fit(p) ? launch_v<true>(p, s) : launch_v<false>(p, s);
 }
 
 int ib_lut_fused_max_degree() { return kMaxDegree; }
 int ib_lut_fused_threads_v4() { return kThreads<4>; }
 int ib_lut_fused_threads_v1() { return kThreads<1>; }
+int ib_lut_fused_lane_bytes() { return int(kLaneBytes); }
 
 const char* ib_lut_fused_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -16,9 +16,12 @@
 // the shared-memory pipe idle. K1 with one column per thread ran at a third
 // of its lookup bound (3.1476 ms against 0.9965 ms for a WLAN |T|=16 decode
 // of batch 4096, 49 bodies); with four columns' folds unrolled side by
-// side, 2.4400 ms (cli/kernel_times.py). The byte tables' bank conflicts
-// cost less than the extraction a conflict-free nibble layout adds to every
-// chain step, so the folds read one byte per lookup.
+// side, 2.4400 ms (cli/kernel_times.py). The folds read one byte per
+// lookup: a nibble-packed table, conflict-free, cost more extraction on every
+// chain step than the conflicts of a byte table shared by the block; a copy
+// of the tables per lane (LaneLuts in K1 and K3, lane_row below) removes the
+// conflicts where shared memory has room for it (K1: 1.77 instead of 2.40 ms
+// with every lookup so redirected).
 
 #pragma once
 
@@ -105,6 +108,17 @@ __device__ __forceinline__ void vn_fold(uint8_t ch, const uint8_t (&m)[D], uint8
 #pragma unroll
   for (int k = 2; k < D; ++k) s0 = lut(k - 1, s0, m[k]);
   out[0] = s0;
+}
+
+// The row of b in a lane's copy of per-lane tables (K1's and K3's LaneLuts):
+// lane + 128 b, where lane is 4 x the lane (< 128, so an OR). A pure asm,
+// opaque to the compilers' reassociation, so the lookups that take the same
+// b share it (equal calls still fold into one); left to them, each lookup
+// took a second add.
+__device__ __forceinline__ int lane_row(uint32_t lane, int b) {
+  uint32_t r;
+  asm("or.b32 %0, %1, %2;" : "=r"(r) : "r"(lane), "r"(uint32_t(b) << 7));
+  return int(r);
 }
 
 #define IB_DEGREES_2_TO_16(X) \

@@ -154,10 +154,8 @@ __host__ __device__ __forceinline__ int lane_slot(int slot) {
 // of word ((s / 4) * slot + x) * 32 + l, so each lane reads only its own bank.
 // Entry a * stride + b of slot s sits 128 (a * stride + b) bytes from the
 // slot's start, so a lookup is one multiply-add, a * 128 stride on the
-// lane's row of b, and one load whose offset is a constant when SLOT (the
-// slot stride) is. The row of b is one instruction the compilers may not
-// spread over the lookups (lane_row), so the lookups that take the same b
-// share it; left to them, each lookup took a second add.
+// lane's row of b (ib_lut::lane_row), and one load whose offset is a
+// constant when SLOT (the slot stride) is.
 template <int SLOT>
 struct LaneLuts {
   const uint8_t* base;  // the block's copies
@@ -166,14 +164,7 @@ struct LaneLuts {
   int stride128;        // 128 x the tables' row stride
   __device__ __forceinline__ uint8_t operator()(int l, int a, int b) const {
     const int group = (l >> 2) * (SLOT ? SLOT : slot);
-    return base[a * stride128 + lane_row(lane, b) + (group << 7) + (l & 3)];
-  }
-  // lane + 128 b (lane < 128, so an OR), opaque to the compilers'
-  // reassociation (a pure asm, so equal calls still fold into one).
-  __device__ __forceinline__ static int lane_row(uint32_t lane, int b) {
-    uint32_t r;
-    asm("or.b32 %0, %1, %2;" : "=r"(r) : "r"(lane), "r"(uint32_t(b) << 7));
-    return int(r);
+    return base[a * stride128 + ib_lut::lane_row(lane, b) + (group << 7) + (l & 3)];
   }
 };
 

@@ -3,9 +3,12 @@
 Port of ``kernels/ib_lut_fused.py`` (``FusedIBDecoder``). For a CUDA tensor
 the decoder launches the hand-written kernel ``csrc/ib_lut_fused.cu`` (one
 CTA per tile of ``batch_tile`` codewords, both message views in shared
-memory, early exit per tile; the routes in shared memory as uint16 where
-they fit, :func:`kernel_shared_bytes`; each pass walked flat over its
-degree groups by threads of :func:`columns_per_thread` codeword columns);
+memory, early exit per tile; where the tables take 4 bits a message, the
+views at 4 bits and the pairwise tables of the passes copied per lane
+(:func:`lane_words`), else the views as bytes, one table copy per block and
+the routes in shared memory as uint16 where they fit,
+:func:`kernel_shared_bytes`; each pass walked flat over its degree groups by
+threads of :func:`columns_per_thread` codeword columns);
 for a CPU tensor it runs the plain twin
 :func:`ib_lut_decode_tiled`, which applies the whole-batch decoder to each
 zero-padded tile. The two agree bit for bit: outputs, per-codeword
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +37,12 @@ BATCH_TILES = (32, 16, 8, 4, 2, 1)
 # K1's threads per CTA at 4 and at 1 codeword columns per thread (kThreads in
 # csrc/ib_lut_fused.cu).
 THREADS = {4: 640, 1: 1024}
+# The per-lane tables (kLane* in csrc/ib_lut_fused.cu): 16 byte positions in
+# 4 groups of 256 entries x 32 lanes x 4 bytes, for |T| and |T_ch| at most 16.
+LANE_POSITIONS = 16
+LANE_ENTRIES = 256
+LANE_BYTES = LANE_POSITIONS // 4 * LANE_ENTRIES * 128
+LANE_MAX_T = 16
 
 
 def _slot(t_channel: int, t_decoder: int) -> int:
@@ -69,25 +78,86 @@ def shared_bytes(
     )
 
 
+class K1Carve(NamedTuple):
+    """K1's shared memory a CTA, whether its routes are in it (else read from
+    device memory), and whether the tile runs on per-lane tables."""
+
+    bytes: int
+    shared_routes: bool
+    lanes: bool
+
+
+def _ceil16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def lane_groups(layout: DecodeLayout) -> tuple[int, int]:
+    """The per-lane tables' groups that a CN stage writes (from the first)
+    and the first group a VN stage writes (to the last): the CN pass's
+    slot s at byte position s, the VN pass's (slots 0 .. d_v - 2) at
+    15 - s."""
+    cn_slots = max(layout.d_c_max - 2, 1)
+    return -(-cn_slots // 4), (LANE_POSITIONS - (layout.d_v_max - 1)) // 4
+
+
+def lane_stage_bytes(layout: DecodeLayout, t_decoder: int) -> tuple[int, int]:
+    """Bytes of a CN and of a VN stage as :func:`lane_words` lays them out:
+    the groups' words, then the alignment rows padded to 16 bytes."""
+    cn_groups, vn_group0 = lane_groups(layout)
+    words = 4 * LANE_ENTRIES
+    return (
+        cn_groups * words + _ceil16(layout.d_c_max * t_decoder),
+        (LANE_POSITIONS // 4 - vn_group0) * words + _ceil16(layout.d_v_max * t_decoder),
+    )
+
+
+def lanes_fit(layout: DecodeLayout, t_channel: int, t_decoder: int) -> bool:
+    """Whether the tables take per-lane copies (``lane_words``): |T| and
+    |T_ch| at most 16 (4-bit messages, entries below 256), the CN pass's
+    LUTs and the VN pass's (d_v - 1) within the 16 byte positions, and at
+    most 65536 edges (uint16 routes)."""
+    return (
+        max(t_channel, t_decoder) <= LANE_MAX_T
+        and max(layout.d_c_max - 2, 1) + layout.d_v_max - 1 <= LANE_POSITIONS
+        and layout.d_v_max * _slot(t_channel, t_decoder) <= LANE_BYTES
+        and layout.n_edges <= 65536
+    )
+
+
 def kernel_shared_bytes(
     layout: DecodeLayout, batch_tile: int, t_channel: int, t_decoder: int
-) -> tuple[int, bool]:
-    """K1's own carve, as ``shared_bytes`` in the .cu file: the tile rule's
-    :func:`shared_bytes`, then the routes as uint16 (2-byte aligned) where
-    they fit in :data:`MAX_SHARED_BYTES` and the layout has at most 65536
-    edges. Returns the bytes and whether the routes are in shared memory.
-    The tile rule (:func:`pick_batch_tile`) does not follow it."""
+) -> K1Carve:
+    """K1's own carve, as ``shared_bytes`` in the .cu file. Where the tables
+    take per-lane copies (:func:`lanes_fit`), the tile is a multiple of 4
+    and it fits :data:`MAX_SHARED_BYTES`: the unsat counts, the views and
+    the channel at 4 bits a message and the alignment rows (16-byte
+    aligned), then the per-lane tables (:data:`LANE_BYTES`) and two buffers
+    of the larger stage (:func:`lane_stage_bytes`); the routes are read from
+    device memory. Else the tile rule's :func:`shared_bytes`, then
+    the routes as uint16 (2-byte aligned) where they fit and the layout has
+    at most 65536 edges. The tile rule (:func:`pick_batch_tile`) does not
+    follow it."""
+    if lanes_fit(layout, t_channel, t_decoder) and batch_tile % 4 == 0:
+        views = (2 * layout.n_edges + layout.n_vars) * batch_tile // 2
+        rows = (layout.d_c_max + layout.d_v_max) * t_decoder
+        stages = max(lane_stage_bytes(layout, t_decoder))
+        lane = _ceil16(2 * 4 * batch_tile + views + rows) + LANE_BYTES + 2 * stages
+        if lane <= MAX_SHARED_BYTES:
+            return K1Carve(lane, False, True)
     carve = shared_bytes(layout, batch_tile, t_channel, t_decoder)
     routes = -(-carve // 2) * 2 + 4 * layout.n_edges
     if layout.n_edges <= 65536 and routes <= MAX_SHARED_BYTES:
-        return routes, True
-    return carve, False
+        return K1Carve(routes, True, False)
+    return K1Carve(carve, False, False)
 
 
 def pick_batch_tile(
     layout: DecodeLayout, t_channel: int, t_decoder: int
 ) -> int:
-    """Largest tile of 32/16/8/4/2/1 codewords whose CTA fits 227 KB."""
+    """Largest tile of 32/16/8/4/2/1 codewords whose CTA fits 227 KB with
+    byte views and one table copy (:func:`shared_bytes`), whether or not it
+    then runs on per-lane tables: the tile, so the exit granularity, does
+    not depend on the path."""
     for bt in BATCH_TILES:
         if shared_bytes(layout, bt, t_channel, t_decoder) <= MAX_SHARED_BYTES:
             return bt
@@ -188,6 +258,45 @@ def layout_arrays(layout: DecodeLayout) -> dict[str, np.ndarray]:
             ],
             np.int32,
         ),
+    )
+
+
+def lane_words(
+    tables: dict[str, np.ndarray], layout: DecodeLayout
+) -> tuple[np.ndarray, np.ndarray]:
+    """The per-lane tables' stages, as K1 copies them into shared memory
+    ([i_max, stage bytes / 4] uint32 each, :func:`lane_stage_bytes`): a
+    stage's groups of words, each word the four byte positions 4 g .. 4 g + 3
+    of one entry x (word x of its group), then the stage's alignment rows
+    (``match_cn`` or ``match_vn`` of :meth:`FusedIBDecoder._host_tables`),
+    padded to 16 bytes. The CN pass's slot s sits at position s, the VN
+    pass's (slots 0 .. d_v - 2) at 15 - s. A CN stage of iteration k writes
+    the groups of the CN positions with the CN tables of k, and in a group
+    shared with the VN positions the VN tables of k - 1, which the VN pass
+    running beside the stage reads; a VN stage of k the groups of the VN
+    positions with the VN tables of k and the CN tables of k. So a stage
+    rewrites the other pass's bytes unchanged."""
+    cn_tab, vn_tab = tables["cn_tab"], tables["vn_tab"]
+    i_max, c, slot = cn_tab.shape
+    v = layout.d_v_max - 1
+    cn = np.zeros((i_max, LANE_POSITIONS, LANE_ENTRIES), np.uint8)
+    vn = np.zeros_like(cn)
+    cn[:, :c, :slot] = cn_tab
+    vn[:, LANE_POSITIONS - 1 - np.arange(v), :slot] = vn_tab[:, :v]
+    vn_before = np.concatenate([np.zeros_like(vn[:1]), vn[:-1]])
+    cn_groups, vn_group0 = lane_groups(layout)
+
+    def stage(pos: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        i, q, e = pos.shape
+        words = np.ascontiguousarray(pos.reshape(i, q // 4, 4, e).transpose(0, 1, 3, 2))
+        flat_rows = rows.reshape(i, -1)
+        padded = np.zeros((i, _ceil16(flat_rows.shape[1])), np.uint8)
+        padded[:, : flat_rows.shape[1]] = flat_rows
+        return np.concatenate([words.reshape(i, -1), padded], axis=1).view("<u4")
+
+    return (
+        stage((cn | vn_before)[:, : 4 * cn_groups], tables["match_cn"]),
+        stage((vn | cn)[:, 4 * vn_group0 :], tables["match_vn"]),
     )
 
 
@@ -311,11 +420,17 @@ class FusedIBDecoder:
     def host_arrays(self) -> dict[str, np.ndarray]:
         """The kernels' arguments as host arrays: :meth:`_host_tables`, the
         layout, and for K1 the routes as uint16 where the layout has at most
-        65536 edges."""
+        65536 edges and the per-lane tables' words where the tile runs on
+        them (:func:`kernel_shared_bytes`, :func:`lane_words`)."""
         arrays = {**self._host_tables(), **layout_arrays(self.layout)}
         if self.layout.n_edges <= 65536:
             arrays["cn_route16"] = arrays["cn_route"].astype(np.uint16)
             arrays["vn_route16"] = arrays["vn_route"].astype(np.uint16)
+        t = self.tables
+        if kernel_shared_bytes(
+            self.layout, self.batch_tile, t.cardinality_t_channel, t.cardinality_t_decoder
+        ).lanes:
+            arrays["lane_cn"], arrays["lane_vn"] = lane_words(arrays, self.layout)
         return arrays
 
     def _args(self, device: torch.device) -> dict:
@@ -340,7 +455,10 @@ class FusedIBDecoder:
         unsat = torch.empty(batch, dtype=torch.int32, device=device)
         iters = torch.empty(batch, dtype=torch.int32, device=device)
         t = self.tables
-        route16 = [a[k].data_ptr() if k in a else None for k in ("cn_route16", "vn_route16")]
+        optional = [
+            a[k].data_ptr() if k in a else None
+            for k in ("cn_route16", "vn_route16", "lane_cn", "lane_vn")
+        ]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             _library().decode(
@@ -348,7 +466,7 @@ class FusedIBDecoder:
                 a["cn_tab"].data_ptr(), a["vn_tab"].data_ptr(),
                 a["match_cn"].data_ptr(), a["match_vn"].data_ptr(),
                 a["seed_var"].data_ptr(), a["node_var"].data_ptr(),
-                a["cn_route"].data_ptr(), a["vn_route"].data_ptr(), *route16,
+                a["cn_route"].data_ptr(), a["vn_route"].data_ptr(), *optional,
                 a["cn_groups"].data_ptr(), a["vn_groups"].data_ptr(),
                 len(lay.cn_groups), len(lay.vn_groups), lay.n_vars, lay.n_edges,
                 batch, bt,
@@ -379,6 +497,6 @@ def _library():
 
     p, i = ctypes.c_void_p, ctypes.c_int
     return KernelLibrary(
-        "ib_lut_fused", [p] * 16 + [i] * 15 + [p], MAX_DEGREE,
-        threads_v4=THREADS[4], threads_v1=THREADS[1],
+        "ib_lut_fused", [p] * 18 + [i] * 15 + [p], MAX_DEGREE,
+        threads_v4=THREADS[4], threads_v1=THREADS[1], lane_bytes=LANE_BYTES,
     )

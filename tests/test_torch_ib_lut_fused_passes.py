@@ -3,14 +3,20 @@
 K1 (``csrc/ib_lut_fused.cu``) decodes one tile per CTA. A thread keeps V
 codeword columns (4 where 4 divides the tile, else 1) for the whole decode
 and walks each pass flat over all its degree groups, q nodes at a time.
-The routes are read as uint16 from shared memory where they fit
-(``kernel_shared_bytes``), else as int32; the pairwise tables are one byte
-copy per block, slot l at l * slot, entry (a, b) at a * stride + b (stride
-|T_ch| for the iteration-0 CN tables, |T| otherwise). A body is a VN pass
-and a CN pass that counts the checks of odd input parity per column; with
-early exit the tile leaves after the barrier that follows the CN pass when
-no count is set. The decision folds the channel and every message with the
-VN tables of the last iteration.
+Where the tables take 4 bits a message and the carve fits
+(``kernel_shared_bytes``), the views hold 4 bits a message, the routes are
+read as uint16 from device memory, and the passes' pairwise tables are
+copied per lane (``lane_words``): lane l's copy of entry x at byte position
+q at (q // 4) * 32768 + 128 x + 4 l + q % 4, the CN pass's slot s at
+position s and the VN pass's at 15 - s, each stage rewriting whole groups.
+Else the routes are read as uint16 from shared memory where they fit, else
+as int32, and the pairwise tables are one byte copy per block, slot l at
+l * slot. Entry (a, b) is a * stride + b (stride |T_ch| for the iteration-0
+CN tables, |T| otherwise). A body is a VN pass and a CN pass that counts
+the checks of odd input parity per column; with early exit the tile leaves
+after the barrier that follows the CN pass when no count is set. The
+decision folds the channel and every message with the VN tables of the last
+iteration, one copy per block.
 
 :func:`k1_passes` runs that schedule pass by pass, tile by tile, with the
 port's node folds (``ops/lut_fold.py``) reading K1's own table and route
@@ -108,66 +114,125 @@ class SlotLut:
         return self.slot[a * self.stride + b]
 
 
+LANE_GROUP = k1.LANE_ENTRIES * 128  # bytes of one group of the per-lane tables
+
+
+def lane_position(kind: str, slot: int) -> int:
+    """The byte position of a pass's slot in the per-lane tables."""
+    return slot if kind == "cn" else k1.LANE_POSITIONS - 1 - slot
+
+
+class LaneLut:
+    """One pairwise LUT of the per-lane tables ``mem`` (bytes), read with
+    K1's addressing: the thread's lane (``lane`` [R, 1]), entry
+    a * stride + b, the slot's byte position."""
+
+    def __init__(self, mem: torch.Tensor, position: int, stride: int, lane: torch.Tensor):
+        self.mem, self.stride, self.lane = mem, stride, lane
+        self.const = position // 4 * LANE_GROUP + position % 4
+
+    def __getitem__(self, ab):
+        a, b = ab
+        return self.mem[a * (128 * self.stride) + (4 * self.lane | b << 7) + self.const]
+
+
+def spread_stage(mem: torch.Tensor, stage: np.ndarray, group0: int, groups: int,
+                 row_bytes: int) -> torch.Tensor:
+    """A stage as ``lane_words`` holds it, spread as K1's spread_stage does:
+    its groups' words stored for the 32 lanes (entry x of group g at
+    g * 32768 + 128 x, lane l's word 4 l bytes further), and its alignment
+    rows, which it returns as K1 stages them ([degree, T])."""
+    words = stage[: groups * k1.LANE_ENTRIES].astype("<u4")
+    lanes = np.repeat(words, 32)
+    as_bytes = torch.as_tensor(lanes.view(np.uint8).astype(np.int64))
+    start = group0 * LANE_GROUP
+    mem[start : start + as_bytes.numel()] = as_bytes
+    rows = stage[groups * k1.LANE_ENTRIES :].astype("<u4").view(np.uint8)[:row_bytes]
+    return torch.as_tensor(rows.astype(np.int64))
+
+
 def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
     """K1's passes in plain torch, one zero-padded tile at a time: the decode
     result and each tile's passes in order."""
     lay, bt = dec.layout, dec.batch_tile
     t = dec.tables
     T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
-    a = {k: torch.as_tensor(v.astype(np.int64)) for k, v in dec.host_arrays().items()}
-    _, shared_routes = k1.kernel_shared_bytes(lay, bt, Tch, T)
-    if shared_routes:  # the kernel reads the uint16 copies
+    host = dec.host_arrays()
+    a = {k: torch.as_tensor(v.astype(np.int64)) for k, v in host.items()}
+    carve = k1.kernel_shared_bytes(lay, bt, Tch, T)
+    assert ("lane_cn" in host) == carve.lanes
+    if carve.shared_routes or carve.lanes:  # the kernel reads the uint16 copies
         routes = {"cn": a["cn_route16"], "vn": a["vn_route16"]}
     else:
         routes = {"cn": a["cn_route"], "vn": a["vn_route"]}
+    if carve.lanes:
+        mem = torch.zeros(k1.LANE_BYTES, dtype=torch.int64)
+        cn_groups, vn_group0 = k1.lane_groups(lay)
     v = k1.columns_per_thread(bt)
     walks = {kind: k1_walk(lay, bt, kind) for kind in ("cn", "vn", "decide")}
     node_offsets = np.cumsum([0] + [g.num_nodes for g in lay.vn_groups])
 
-    def luts(stage, stride):
-        return [SlotLut(s, stride) for s in stage]
+    def luts(kind, stage, n, stride, thread):
+        if not carve.lanes:
+            return [SlotLut(s, stride) for s in stage[:n]]
+        lane = torch.as_tensor(thread % 32)[:, None]
+        return [LaneLut(mem, lane_position(kind, s), stride, lane) for s in range(n)]
 
     def records(kind, gi):
         w = walks[kind]
         sel = w["group"] == gi
         ln = torch.as_tensor(w["ln"][sel])
         cols = torch.as_tensor(w["c0"][sel])[:, None] + torch.arange(v)  # [R, V]
-        return ln, cols
+        return ln, cols, w["thread"][sel]
+
+    def write(dst, rows, cols, values):
+        if carve.lanes:  # a message is 4 bits of the view
+            assert int(values.max()) < 16
+        dst[rows, cols] = values
 
     def cn_pass(src, dst, stage, stride, match, unsat):
         for gi, g in enumerate(lay.cn_groups):
-            ln, cols = records("cn", gi)
+            ln, cols, thread = records("cn", gi)
             rows = [g.offset + k * g.num_nodes + ln for k in range(g.degree)]
             m = torch.stack([src[r[:, None], cols] for r in rows])  # [d, R, V]
             if unsat is not None:
                 odd = ((m < T // 2).sum(0) % 2).reshape(-1).to(torch.int32)
                 unsat.index_add_(0, cols.reshape(-1), odd)
-            out = cn_lut_leave_one_out(m, luts(stage[: g.degree - 2], stride))
+            out = cn_lut_leave_one_out(m, luts("cn", stage, g.degree - 2, stride, thread))
             for k, r in enumerate(rows):
-                dst[routes["cn"][r][:, None], cols] = match[g.degree - 1][out[k]]
+                write(dst, routes["cn"][r][:, None], cols, match[g.degree - 1][out[k]])
 
     def vn_pass(src, dst, chg, stage, match):
         for gi, g in enumerate(lay.vn_groups):
             d = g.degree
-            ln, cols = records("vn", gi)
+            ln, cols, thread = records("vn", gi)
             ch = chg[(node_offsets[gi] + ln)[:, None], cols]
             rows = [g.offset + k * g.num_nodes + ln for k in range(d)]
             m = torch.stack([src[r[:, None], cols] for r in rows])
-            vs = luts(stage[: max(d - 1, 1)], T)
+            vs = luts("vn", stage, max(d - 1, 1), T, thread)
             out = vn_lut_leave_one_out(ch, m, vs[0], vs[1:])
             for k in range(d):  # degree 1 forwards the channel, unaligned
                 val = out[k] if d == 1 else match[d - 1][out[k]]
-                dst[routes["vn"][rows[k]][:, None], cols] = val
+                write(dst, routes["vn"][rows[k]][:, None], cols, val)
+
+    def stage(kind, i):
+        """The tables of a pass of iteration i, staged during the pass before."""
+        match = a[f"match_{kind}"][i]
+        if carve.lanes:
+            g0, groups = (0, cn_groups) if kind == "cn" else (vn_group0, 4 - vn_group0)
+            rows = spread_stage(mem, host[f"lane_{kind}"][i], g0, groups, match.numel())
+            match = rows.reshape(match.shape)
+        return a[f"{kind}_tab"][i], match
 
     def decide(src, chg, stage, b0, batch):
         out = torch.zeros((lay.n_vars, bt), dtype=torch.int64)
         for gi, g in enumerate(lay.vn_groups):
-            ln, cols = records("decide", gi)
+            ln, cols, _ = records("decide", gi)
             node = node_offsets[gi] + ln
             ch = chg[node[:, None], cols]
             m = torch.stack([src[(g.offset + k * g.num_nodes + ln)[:, None], cols]
                              for k in range(g.degree)])
-            vs = luts(stage[: g.degree], T)
+            vs = [SlotLut(s, T) for s in stage[: g.degree]]  # one copy per block
             out[a["node_var"][node][:, None], cols] = vn_lut_full_fold(ch, m, vs[0], vs[1:])
         return out
 
@@ -179,15 +244,15 @@ def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
         x = padded[:, b0 : b0 + bt]
         A, B = x[a["seed_var"]], torch.zeros((lay.n_edges, bt), dtype=torch.int64)
         chg = x[a["node_var"]]
-        tc, mc = a["cn_tab"][0], a["match_cn"][0]
+        tc, mc = stage("cn", 0)
+        tv, mv = stage("vn", 0)  # staged during the next pass: the other bytes
         cn_pass(A, B, tc, Tch, mc, None)
-        tv, mv = a["vn_tab"][0], a["match_vn"][0]  # staged during that pass
         unsat = torch.zeros((2, bt), dtype=torch.int32)
         trace, iters = ["cn0"], 0
         for i in range(dec.imax - 1):
-            tc, mc = a["cn_tab"][i + 1], a["match_cn"][i + 1]
+            tc, mc = stage("cn", i + 1)
             vn_pass(B, A, chg, tv, mv)
-            tv, mv = a["vn_tab"][i + 1], a["match_vn"][i + 1]
+            tv, mv = stage("vn", i + 1)
             unsat[(i + 1) & 1] = 0
             cn_pass(A, B, tc, T, mc, unsat[i & 1])
             trace += ["vn", "cn"]
@@ -342,14 +407,18 @@ def test_k1_passes_without_alignment(qc96):
     [("wlan_T16_0.8", 6.0, 4, True), ("wlan_T16_0.8", 0.8, 3, False), ("wlan_T32_0.6", 0.8, 2, True)],
 )
 def test_k1_passes_on_wlan_at_its_default_tile(config, ebn0_db, max_iters, early_exit):
-    """WLAN at its default tile of 16: 4 columns per thread, 640 threads,
-    the routes uint16 in shared memory; equal to the twin."""
+    """WLAN at its default tile of 16: 4 columns per thread, 640 threads;
+    at |T| = 16 the per-lane tables and 4-bit views (routes uint16 from
+    device memory), at |T| = 32 one table copy a block and the routes uint16
+    in shared memory; equal to the twin."""
     layout = get_model("wlan-1296").make_layout()
     tables = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
     dec = FusedIBDecoder(layout, tables, max_iters=max_iters, early_exit=early_exit)
     assert dec.batch_tile == 16 and k1.threads_per_cta(16) == 640
-    assert k1.kernel_shared_bytes(layout, 16, tables.cardinality_t_channel,
-                                  tables.cardinality_t_decoder)[1]
+    carve = k1.kernel_shared_bytes(layout, 16, tables.cardinality_t_channel,
+                                   tables.cardinality_t_decoder)
+    t16 = tables.cardinality_t_decoder == 16
+    assert (carve.lanes, carve.shared_routes) == (t16, not t16)
     ch = _clusters(ebn0_db, tables.cardinality_t_channel, layout.n_vars, 20, seed=3)
     got, _ = k1_passes(dec, ch)
     assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 16, max_iters,
@@ -363,7 +432,7 @@ def test_k1_passes_on_regular_8000_read_int32_routes():
     tables = DecoderConfig.load(f"{CONFIGS}/regular_T16_1.05.npz").tables
     dec = FusedIBDecoder(layout, tables, max_iters=3, early_exit=True)
     assert dec.batch_tile == 4
-    assert not k1.kernel_shared_bytes(layout, 4, 16, 16)[1]
+    assert k1.kernel_shared_bytes(layout, 4, 16, 16) == (225_968, False, False)
     ch = _clusters(1.2, 16, layout.n_vars, 6, seed=4)
     got, _ = k1_passes(dec, ch)
     assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 4, 3))
@@ -420,9 +489,9 @@ def test_default_tiles_are_pinned():
         t = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
         dec = FusedIBDecoder(layout, t)
         tiles.append(dec.batch_tile)
-        got, _ = k1.kernel_shared_bytes(layout, dec.batch_tile, t.cardinality_t_channel,
-                                        t.cardinality_t_decoder)
-        assert got <= k1.MAX_SHARED_BYTES
+        got = k1.kernel_shared_bytes(layout, dec.batch_tile, t.cardinality_t_channel,
+                                     t.cardinality_t_decoder)
+        assert got.bytes <= k1.MAX_SHARED_BYTES
     assert tiles == [16, 16, 4]
 
 
@@ -434,3 +503,90 @@ def test_threads_keep_whole_node_rows(batch_tile, columns, threads):
     assert k1.columns_per_thread(batch_tile) == columns
     assert k1.threads_per_cta(batch_tile) == threads
     assert threads % (batch_tile // columns) == 0
+
+
+# -- the per-lane tables -------------------------------------------------------
+
+
+@pytest.mark.parametrize("batch_tile", k1.BATCH_TILES)
+@pytest.mark.parametrize("config", ["wlan_T16_0.8", "wlan_T32_0.6"])
+def test_lane_lookups_equal_the_per_block_lookups(config, batch_tile):
+    """Staged in K1's order (CN stage 0, then VN stage k beside CN pass k and
+    CN stage k + 1 beside VN pass k), every lane's copy of every slot and
+    entry of the pass that reads it equals the per-block table, and a stage
+    leaves the bytes the other pass reads as they were. |T| = 32 takes no
+    per-lane tables at any tile; |T| = 16 at every tile that 4 divides and
+    whose carve fits."""
+    layout = get_model("wlan-1296").make_layout()
+    t = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
+    dec = FusedIBDecoder(layout, t, batch_tile=batch_tile)
+    host = dec.host_arrays()
+    lanes = k1.kernel_shared_bytes(layout, batch_tile, Tch, T).lanes
+    assert lanes == (T == 16 and batch_tile in (16, 8, 4))
+    assert ("lane_cn" in host) == lanes
+    if not lanes:
+        return
+    c, v, slot = host["cn_tab"].shape[1], layout.d_v_max - 1, host["cn_tab"].shape[2]
+    mem = torch.zeros(k1.LANE_BYTES, dtype=torch.int64)
+    cn_groups, vn_group0 = k1.lane_groups(layout)
+    assert (cn_groups, vn_group0) == (2, 1)
+    entry = torch.arange(slot)[:, None]
+    lane = torch.arange(32)[None, :]
+
+    def read(kind, s):  # [entries, lanes] of one slot
+        q = lane_position(kind, s)
+        return mem[q // 4 * LANE_GROUP + 128 * entry + 4 * lane + q % 4]
+
+    def held(kind, tab, n):
+        return all(torch.equal(read(kind, s), torch.as_tensor(tab[s].astype(np.int64))[:, None]
+                               .expand(slot, 32)) for s in range(n))
+
+    for i in range(t.i_max):
+        rows = spread_stage(mem, host["lane_cn"][i], 0, cn_groups, layout.d_c_max * T)
+        assert held("cn", host["cn_tab"][i], c)
+        assert np.array_equal(rows.numpy(), host["match_cn"][i].reshape(-1))
+        if i:  # VN pass i - 1 reads its tables beside this stage
+            assert held("vn", host["vn_tab"][i - 1], v)
+        rows = spread_stage(mem, host["lane_vn"][i], vn_group0, 4 - vn_group0,
+                            layout.d_v_max * T)
+        assert held("vn", host["vn_tab"][i], v) and held("cn", host["cn_tab"][i], c)
+        assert np.array_equal(rows.numpy(), host["match_vn"][i].reshape(-1))
+
+
+def _cu_constants() -> dict[str, int]:
+    import re
+    from pathlib import Path
+
+    src = (Path(k1.__file__).parents[1] / "csrc" / "ib_lut_fused.cu").read_text()
+    return {m[1]: int(m[2]) for m in re.finditer(r"constexpr (?:int|size_t) (k\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize(
+    "model, config, tile, carve",
+    [
+        ("wlan-1296", "wlan_T16_0.8", 16, (222_672, False, True)),
+        ("wlan-1296", "wlan_T32_0.6", 16, (206_064, True, False)),
+        ("regular-3-6-8000", "regular_T16_1.05", 4, (225_968, False, False)),
+    ],
+)
+def test_carve_and_tile_rule_match_the_kernel(model, config, tile, carve):
+    """The tile rule and K1's carve on the three layouts K1 runs: the bytes
+    and paths the header of csrc/ib_lut_fused.cu states (WLAN |T| = 16 on
+    per-lane tables, |T| = 32 with the routes in shared memory, regular
+    N = 8000 reading them from device memory), with the wrapper's constants
+    equal to the source's."""
+    consts = _cu_constants()
+    assert consts["kMaxShared"] == k1.MAX_SHARED_BYTES
+    assert consts["kLanePositions"] == k1.LANE_POSITIONS
+    assert consts["kLaneEntries"] == k1.LANE_ENTRIES and consts["kLaneMaxT"] == k1.LANE_MAX_T
+    assert k1.LANE_BYTES == 131_072
+    layout = get_model(model).make_layout()
+    t = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
+    assert k1.pick_batch_tile(layout, Tch, T) == tile
+    assert k1.kernel_shared_bytes(layout, tile, Tch, T) == carve
+    # The tile rule reads byte views and one table copy: the next tile up
+    # does not fit them, whichever path the tile then takes.
+    if tile < k1.BATCH_TILES[0]:
+        assert k1.shared_bytes(layout, 2 * tile, Tch, T) > k1.MAX_SHARED_BYTES
