@@ -1925,13 +1925,16 @@ def main() -> None:
         probe_builds = {n: builds[n].result()[1] for n in PROBE_LIBRARIES}
         late_builds = {n: builds[n].result()[1] for n in LATE_LIBRARIES}
         all_loaded = time.perf_counter() - t0
-    k1_names = {f"kernelILb{r}ELi{v}ELb0E": f"{'shared' if r else 'device'} routes, V={v}"
+    k1_names = {f"kernelILb{r}ELi{v}ELb0ELb0E": f"{'shared' if r else 'device'} routes, V={v}"
                 for r in (0, 1) for v in (1, 4)}
-    k1_names["kernelILb0ELi4ELb1E"] = "per-lane tables, 4-bit views, V=4"
+    k1_names["kernelILb0ELi4ELb1ELb0E"] = "per-lane tables, 4-bit views, V=4"
+    k1_names["kernelILb0ELi4ELb1ELb1E"] = "per-lane tables on thread-block clusters"
+    k1_ptxas = ptxas_lines(build["log"], k1_names)
     print(f"[2 build] ib_lut_fused.cu: nvcc {build['seconds']:.2f} s, load "
           f"{k1_loaded:.2f} s; threads per CTA at V columns per thread "
-          f"{json.dumps(ib_lut_fused.THREADS)}; "
-          f"{ptxas_lines(build['log'], k1_names)}", flush=True)
+          f"{json.dumps(ib_lut_fused.THREADS)}; {k1_ptxas}", flush=True)
+    if re.search(r"[1-9]\d* bytes spill (stores|loads)", k1_ptxas):
+        raise AssertionError("a K1 instantiation spills registers")
     lap(2)
 
     # -- 3: kernel vs plain twin -----------------------------------------
@@ -1995,8 +1998,14 @@ def main() -> None:
         *(("wlan_T16_0.8", 8.0, 512, imax, ee, True) for imax in (1, 2, 3) for ee in (True, False)),
         ("wlan_T16_0.8", 0.8, 4096, None, True, True),  # the benchmark's sizes
         ("wlan_T32_0.6", 0.6, 2048, None, True, True),
+        # the queue's batch on thread-block clusters, and 1024 on clusters of 2
+        ("wlan_T16_0.8", 2.4, 512, None, True, True),
+        ("wlan_T16_0.8", 2.4, 512, None, False, True),
+        ("wlan_T16_0.8", 2.4, 500, None, True, True),
+        ("wlan_T16_0.8", 2.4, 1024, None, True, True),
         *(("regular_T16_1.05", 1.2, 8, REG_TWIN_IMAX, ee, True) for ee in (True, False)),
     ]
+    k1_counts = {}  # (tables, batch) -> (launches, cluster launches, CTAs a tile)
     for k, (name, ebn0, batch, imax, early_exit, matching) in enumerate(cases):
         cfg = configs[name]
         lay = reg_layout if name.startswith("regular") else layout
@@ -2029,12 +2038,35 @@ def main() -> None:
             )
         if early_exit and ebn0 == 6.0 and float(got.iterations) >= 49.0:
             raise AssertionError("early exit did not fire at 6.0 dB")
+        k1_counts[name, ch.shape[1]] = (dec.launches, dec.cluster_launches, dec.cluster)
         path = "per-lane tables" if carve.lanes else (
             f"one table copy a block, routes in {'shared' if carve.shared_routes else 'device'} memory")
+        if dec.cluster > 1:  # the same tiles at one CTA a tile
+            one = FusedIBDecoder(lay, cfg.tables, max_iters=imax, early_exit=early_exit,
+                                 use_matching=matching)._launch(ch, cluster=1)
+            torch.cuda.synchronize()
+            if not (torch.equal(got.outputs, one.outputs)
+                    and torch.equal(got.unsatisfied, one.unsatisfied)
+                    and float(got.iterations) == float(one.iterations)):
+                raise AssertionError(f"K1 on clusters of {dec.cluster} disagrees with one CTA a "
+                                     f"tile on {name} {label} batch {ch.shape[1]}")
+            path += f" on clusters of {dec.cluster}, equal to one CTA a tile"
         print(f"[3 exact] {name} {label} max_iters {dec.imax} early_exit={early_exit} "
               f"matching={matching} batch {ch.shape[1]} tile {dec.batch_tile} ({path}, "
               f"{carve.bytes} B): outputs, unsatisfied and mean iterations "
               f"{float(got.iterations):.4f} equal", flush=True)
+    t16 = {b: k1_counts["wlan_T16_0.8", b] for b in (512, 1024, 4096)}
+    t32 = k1_counts["wlan_T32_0.6", 2048]
+    active = ib_lut_fused._max_active_clusters(torch.cuda.current_device(), layout.n_vars,
+                                               layout.n_edges, 16, 16, 16, layout.d_c_max,
+                                               layout.d_v_max)
+    print(f"[3 launches] K1's (launches, cluster_launches, CTAs a tile): |T|=16 at 512 "
+          f"{t16[512]}, at 1024 {t16[1024]}, at 4096 {t16[4096]}; |T|=32 at 2048 {t32}; "
+          f"clusters the card holds at once at |T|=16's carve, by CTAs a cluster: {active}",
+          flush=True)
+    if not (t16[512][1] == t16[512][0] and t16[512][2] > 1 and t16[1024][1] == t16[1024][0]
+            and t16[4096][1] == 0 and t32[1] == 0):
+        raise AssertionError(f"K1's cluster launches: {k1_counts}")
     lap(3)
 
     # -- 4: headline main path -------------------------------------------
@@ -2094,6 +2126,14 @@ def main() -> None:
     print(f"[5 times] batch 4096 decode at 0.8 dB: K1 {ms:.3f} ms with early exit (mean "
           f"iterations {k1_iters:.3f}), {fixed_ms:.3f} ms without (49 bodies), plain twin "
           f"{plain_ms:.1f} ms on {card}", flush=True)
+    # The queue's batch: tiles on thread-block clusters against one CTA a tile.
+    ch = clusters(cfg, 2.4, 512, seed=98)
+    queue = FusedIBDecoder(layout, cfg.tables)
+    queue_ms = cuda_ms(lambda: queue(ch))
+    queue_cluster = queue.cluster
+    one_ms = cuda_ms(lambda: queue._launch(ch, cluster=1))
+    print(f"[5 times] batch 512 decode at 2.4 dB: K1 {queue_ms:.3f} ms on clusters of "
+          f"{queue_cluster}, {one_ms:.3f} ms at one CTA a tile on {card}", flush=True)
     lap(5)
 
     # -- 6: K2 build ------------------------------------------------------

@@ -50,6 +50,32 @@
 //     the routes read as int32 from device memory): byte views and one byte
 //     copy of each table per block. A per-lane copy of a 1 KB |T|=32 table
 //     takes 32 KB, and no two of them fit beside the views.
+// On the per-lane path a launch with too few tiles to fill the card runs each
+// tile on a thread-block cluster of c CTAs on c SMs (ib_lut_fused.py
+// cluster_size: the largest of 4, 3 and 2 whose clusters, one a tile, the
+// card holds at once by cudaOccupancyMaxActiveClusters at the carve, so no
+// tile waits for a second wave; else one CTA a tile). One CTA an SM leaves a
+// tile's passes bound by its slowest thread's chains of lookups, not by the
+// SM's lookups: at WLAN's batch 512 (32 tiles on 32 of 132 SMs) K1 ran at
+// 12% of its lookup bound. A cluster splits each pass's nodes into contiguous
+// spans balanced by lookups (cluster_split); each CTA holds the whole carve
+// at the same offsets, reads only its own nodes' rows, and stores each routed
+// output with st.shared::cluster into the CTA that owns the row (the rank
+// packed above the row in the route); cluster barriers replace the block
+// barriers, and the exit test ORs a flag that every warp with an odd count
+// sets in every CTA. The tile, its exit and every output stay as at one CTA.
+// An H100 SXM holds 30 clusters of 4, 39 of 3 and 66 of 2 at this carve, so
+// the 32 tiles of batch 512 take 3. Measured at batch 512, 2.4 dB (CUDA
+// events, WLAN's degrees only): one CTA a tile 0.9079 ms, clusters of 3
+// 0.5233 ms; 30 tiles on clusters of 4 0.4820 ms; 1024 on clusters of 2
+// 0.6870 against 0.9082 ms. The slowest thread's lookups a column fall from
+// 169 (CN) and 192 (VN) to 73 and 76 at 3 CTAs, but each CTA still stages
+// all the per-lane tables (160 KB of stores a body) and waits at two cluster
+// barriers: a copy whose stores all stayed local took 0.50 ms, so the remote
+// stores cost about 8%. Storing through the owner's mapped address also where
+// the owner is the CTA itself, with no branch, was 1-4% faster than a local
+// store on that branch; spreading the stages from the threads of the row
+// slots that walk a node fewer gained nothing at 3 CTAs and lost at 2.
 // Measured on WLAN |T|=16 at batch 4096, 49 bodies (CUDA events): the
 // per-block path took 2.4028 ms. The same kernel with every pairwise lookup
 // sent to one per-lane copy (results not kept) took 1.7709 ms: bank
@@ -112,6 +138,7 @@ constexpr int kLaneEntries = 256;
 constexpr int kLaneGroupBytes = kLaneEntries * 128;
 constexpr size_t kLaneBytes = kLanePositions / 4 * kLaneGroupBytes;  // 131,072
 constexpr int kLaneMaxT = 16;
+constexpr int kMaxCluster = 4;  // CTAs a tile on the cluster path, at most
 // Threads per CTA at V columns per thread: the most at which ptxas spills
 // nothing (V = 4: 96 registers; 768 threads, 80 registers, spill).
 template <int V>
@@ -138,6 +165,13 @@ struct Params {
   // alignment rows padded to 16 bytes; null where the tables take none.
   const uint32_t* lane_cn;
   const uint32_t* lane_vn;
+  // The cluster path's (ib_lut_fused.py cluster_arrays; null at one CTA a
+  // tile): the routes with the rank of the CTA that owns the row's node in
+  // bits 16 and up, and each rank's first check and first variable in walk
+  // order, [2][cluster + 1].
+  const uint32_t* cn_route_cl;
+  const uint32_t* vn_route_cl;
+  const int32_t* split;
   const int32_t* cn_groups;   // [n_cn_groups, 3] (offset, num_nodes, degree)
   const int32_t* vn_groups;   // [n_vn_groups, 4] (offset, num_nodes, degree, node offset)
   int n_cn_groups, n_vn_groups;
@@ -146,6 +180,7 @@ struct Params {
   int n_cn_slots, n_vn_slots, slot;
   int d_c_max, d_v_max;
   int imax, early_exit;
+  int cluster;  // CTAs a tile: 1, or a cluster of 2 .. kMaxCluster on the per-lane path
 };
 
 // Shared-memory carve without the routes (ib_lut_fused.py:shared_bytes, the
@@ -219,6 +254,40 @@ __host__ __device__ inline size_t shared_bytes(const Params& p) {
   return routes_fit(p) ? route_offset(p) + 4 * size_t(p.n_edges) : carve_bytes(p);
 }
 
+// Distributed shared memory of a thread-block cluster (PTX ISA, sm_90).
+namespace cluster {
+__device__ __forceinline__ uint32_t rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// Every thread of the cluster arrives and waits: the stores of each before
+// it, to any CTA's shared memory, are seen by all after it.
+__device__ __forceinline__ void sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n\tbarrier.cluster.wait.acquire.aligned;"
+               ::: "memory");
+}
+// The address of `p` (this CTA's shared memory) in CTA `rank`'s.
+__device__ __forceinline__ uint32_t map(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void store(uint32_t a, uint16_t v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;" ::"r"(a), "h"(v));
+}
+__device__ __forceinline__ void store(uint32_t a, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(a), "r"(v));
+}
+__device__ __forceinline__ uint32_t load(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+}  // namespace cluster
+
 // Routes in shared memory (uint16) or device memory (int32, or uint16 on the
 // per-lane path).
 struct SharedRoutes {
@@ -232,6 +301,11 @@ struct GlobalRoutes {
 struct GlobalRoutes16 {
   const uint16_t* r;
   __device__ __forceinline__ int operator[](int i) const { return __ldg(&r[i]); }
+};
+// The cluster path's (uint32 from device memory): the row in the low 16 bits,
+// the rank of the CTA that owns it above.
+struct ClusterRoutes {
+  const uint32_t* r;
 };
 
 // Pairwise LUTs of one pass with a copy per lane, the layout of K5b's
@@ -282,6 +356,27 @@ struct Walk {
   int item0, q, c0, rb, cb;
 };
 
+// The nodes of a pass that a CTA walks, flat indices lo .. hi - 1 (on the
+// cluster path; one CTA a tile walks every node).
+struct Span {
+  int lo, hi;
+};
+
+// Stores routed output i (V columns `x`) into view `dst`: row route[i], at the
+// thread's columns. On the cluster path into the view of the CTA that owns
+// the row, at the same offset (its own too: no branch); a thread's columns
+// are whole bytes of the row, so no other thread's store shares them.
+template <class C, class Route>
+__device__ __forceinline__ void put(Route route, uint8_t* dst, int i, Walk w, typename C::W x) {
+  if constexpr (std::is_same_v<Route, ClusterRoutes>) {
+    const uint32_t e = __ldg(&route.r[i]);
+    uint8_t* at = dst + int(e & 0xffffu) * w.rb + w.cb;
+    cluster::store(cluster::map(at, e >> 16), x);
+  } else {
+    C::store(dst + route[i] * w.rb + w.cb, x);
+  }
+}
+
 // One check node of degree D at local index `ln` of its group, columns c0..:
 // leave-one-out, aligned, routed into dst; cnt[v] counts its odd parity.
 // The V columns' folds are unrolled side by side: V independent lookup
@@ -315,7 +410,7 @@ __device__ __forceinline__ void cn_item(const uint8_t* __restrict__ src,
     for (int k = 0; k < D; ++k) o[k] |= C::put(match_row[out[k]], v);
   }
 #pragma unroll
-  for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * w.rb + w.cb, o[k]);
+  for (int k = 0; k < D; ++k) put<C>(route, dst, off + k * n + ln, w, o[k]);
 }
 
 // One variable node of degree D (channel row `chg_row`), columns c0..:
@@ -330,7 +425,7 @@ __device__ __forceinline__ void vn_item(const uint8_t* __restrict__ src,
   using C = Cols<V, BITS>;
   const typename C::W chw = C::load(chg_row + w.cb);
   if constexpr (D == 1) {
-    C::store(dst + route[off + ln] * w.rb + w.cb, chw);
+    put<C>(route, dst, off + ln, w, chw);
   } else {
     typename C::W x[D], o[D];
     const uint8_t* in = src + (off + ln) * w.rb + w.cb;
@@ -349,26 +444,28 @@ __device__ __forceinline__ void vn_item(const uint8_t* __restrict__ src,
       for (int k = 0; k < D; ++k) o[k] |= C::put(match_row[out[k]], v);
     }
 #pragma unroll
-    for (int k = 0; k < D; ++k) C::store(dst + route[off + k * n + ln] * w.rb + w.cb, o[k]);
+    for (int k = 0; k < D; ++k) put<C>(route, dst, off + k * n + ln, w, o[k]);
   }
 }
 
 // CN pass A -> B over every check group, flat: a thread's node carries from
-// one group to the next. With `unsat`, adds this thread's odd-parity counts
-// per column and returns whether it had any.
-template <int V, int BITS, class Route, class Lut>
+// one group to the next (on the cluster path, over the CTA's span `s`). With
+// `unsat`, adds this thread's odd-parity counts per column and returns
+// whether it had any.
+template <bool CLUSTER, int V, int BITS, class Route, class Lut>
 __device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, Lut lut,
-                        const uint8_t* match, Route route, int* unsat, Walk w) {
+                        const uint8_t* match, Route route, int* unsat, Walk w, Span s) {
   int cnt[V] = {};
-  int node = w.item0, first = 0;  // `first`: the group's first node
+  int node = (CLUSTER ? s.lo : 0) + w.item0, first = 0;  // `first`: the group's first node
   for (int k = 0; k < p.n_cn_groups; ++k) {
     const int off = p.cn_groups[3 * k], n = p.cn_groups[3 * k + 1];
     const int d = p.cn_groups[3 * k + 2], end = first + n;
+    const int stop = CLUSTER ? min(end, s.hi) : end;
     const uint8_t* row = match + (d - 1) * p.t_decoder;
     switch (d) {
 #define K1_CN_CASE(D)                                                                   \
   case D:                                                                               \
-    for (; node < end; node += w.q)                                                     \
+    for (; node < stop; node += w.q)                                                    \
       cn_item<D, V, BITS>(A, B, lut, row, route, off, n, node - first, w,               \
                           p.t_decoder / 2, cnt);                                        \
     break;
@@ -390,20 +487,21 @@ __device__ bool cn_pass(const Params& p, const uint8_t* A, uint8_t* B, Lut lut,
   return any;
 }
 
-// VN pass B -> A over every variable group, flat, with the channel clusters
-// `chg` ([n_vars][row], group order).
-template <int V, int BITS, class Route, class Lut>
+// VN pass B -> A over every variable group, flat (on the cluster path, over
+// the span `s`), with the channel clusters `chg` ([n_vars][row], group order).
+template <bool CLUSTER, int V, int BITS, class Route, class Lut>
 __device__ void vn_pass(const Params& p, const uint8_t* B, uint8_t* A, const uint8_t* chg,
-                        Lut lut, const uint8_t* match, Route route, Walk w) {
-  int node = w.item0;
+                        Lut lut, const uint8_t* match, Route route, Walk w, Span s) {
+  int node = (CLUSTER ? s.lo : 0) + w.item0;
   for (int k = 0; k < p.n_vn_groups; ++k) {
     const int off = p.vn_groups[4 * k], n = p.vn_groups[4 * k + 1];
     const int d = p.vn_groups[4 * k + 2], first = p.vn_groups[4 * k + 3], end = first + n;
+    const int stop = CLUSTER ? min(end, s.hi) : end;
     const uint8_t* row = match + (d - 1) * p.t_decoder;
     switch (d) {
 #define K1_VN_CASE(D)                                                                   \
   case D:                                                                               \
-    for (; node < end; node += w.q)                                                     \
+    for (; node < stop; node += w.q)                                                    \
       vn_item<D, V, BITS>(B, A, chg + node * w.rb, lut, row, route, off, n, node - first, \
                           w);                                                           \
     break;
@@ -416,17 +514,19 @@ __device__ void vn_pass(const Params& p, const uint8_t* B, uint8_t* A, const uin
   }
 }
 
-// Decision fold of every variable node (channel plus all messages), written
-// to outputs[var][batch] at the thread's real columns.
-template <int V, int BITS>
+// Decision fold of every variable node (channel plus all messages; on the
+// cluster path those of the span `s`), written to outputs[var][batch] at the
+// thread's real columns.
+template <bool CLUSTER, int V, int BITS>
 __device__ void decide_pass(const Params& p, const uint8_t* B, const uint8_t* chg,
-                            ib_lut::Luts lut, int b0, Walk w) {
+                            ib_lut::Luts lut, int b0, Walk w, Span s) {
   using C = Cols<V, BITS>;
-  int node = w.item0;
+  int node = (CLUSTER ? s.lo : 0) + w.item0;
   for (int k = 0; k < p.n_vn_groups; ++k) {
     const int off = p.vn_groups[4 * k], n = p.vn_groups[4 * k + 1];
     const int d = p.vn_groups[4 * k + 2], first = p.vn_groups[4 * k + 3], end = first + n;
-    for (; node < end; node += w.q) {
+    const int stop = CLUSTER ? min(end, s.hi) : end;
+    for (; node < stop; node += w.q) {
       const uint8_t* in = B + (off + node - first) * w.rb + w.cb;
       const typename C::W chw = C::load(chg + node * w.rb + w.cb);
       int32_t* out = p.outputs + size_t(__ldg(&p.node_var[node])) * p.batch + b0 + w.c0;
@@ -477,34 +577,63 @@ __device__ __forceinline__ void spread_stage(uint8_t* L, const uint8_t* buf, int
   for (int t = threadIdx.x; t < row_bytes; t += blockDim.x) rows[t] = src_rows[t];
 }
 
-// The seed rows: row r of `dst` at the thread's columns <- the channel
-// cluster of variable var[r] (padding columns 0).
+// A seed row: row r of `dst` at the thread's columns <- the channel cluster
+// of variable var[r] (padding columns 0).
+template <int V, int BITS>
+__device__ __forceinline__ void seed_row(const Params& p, uint8_t* dst,
+                                         const int32_t* __restrict__ var, int r, int b0, Walk w) {
+  using C = Cols<V, BITS>;
+  const int32_t* x = p.clusters + size_t(__ldg(&var[r])) * p.batch + b0 + w.c0;
+  typename C::W word = 0;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (b0 + w.c0 + v < p.batch) word |= C::put(uint8_t(x[v]), v);
+  C::store(dst + r * w.rb + w.cb, word);
+}
+
+// The seed rows lo .. hi - 1 of `dst`.
 template <int V, int BITS>
 __device__ void seed_rows(const Params& p, uint8_t* dst, const int32_t* __restrict__ var,
-                          int rows, int b0, Walk w) {
-  using C = Cols<V, BITS>;
-  for (int r = w.item0; r < rows; r += w.q) {
-    const int32_t* x = p.clusters + size_t(__ldg(&var[r])) * p.batch + b0 + w.c0;
-    typename C::W word = 0;
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (b0 + w.c0 + v < p.batch) word |= C::put(uint8_t(x[v]), v);
-    C::store(dst + r * w.rb + w.cb, word);
+                          int lo, int hi, int b0, Walk w) {
+  for (int r = lo + w.item0; r < hi; r += w.q) seed_row<V, BITS>(p, dst, var, r, b0, w);
+}
+
+// The CN view's seed rows of the checks of span `s` (the cluster path).
+template <int V, int BITS>
+__device__ void seed_checks(const Params& p, uint8_t* A, int b0, Walk w, Span s) {
+  int node = s.lo + w.item0, first = 0;
+  for (int k = 0; k < p.n_cn_groups; ++k) {
+    const int off = p.cn_groups[3 * k], n = p.cn_groups[3 * k + 1];
+    const int d = p.cn_groups[3 * k + 2], end = first + n, stop = min(end, s.hi);
+    for (; node < stop; node += w.q)
+      for (int j = 0; j < d; ++j)
+        seed_row<V, BITS>(p, A, p.seed_var, off + j * n + node - first, b0, w);
+    first = end;
   }
 }
 
 // LANES: views at 4 bits a message, the pairwise LUTs of the passes per lane
 // (staged from lane_cn / lane_vn), routes read as uint16 from device memory.
-template <bool SROUTES, int V, bool LANES>
+// CLUSTER (the per-lane path): a tile runs on a cluster of Params::cluster
+// CTAs on as many SMs: each CTA holds the whole carve at the same offsets,
+// walks its span of the checks and of the variables (Params::split), reads
+// only the view rows of its own nodes, and stores each routed output into
+// the view of the CTA that owns the row (ClusterRoutes); cluster barriers
+// take the place of the block barriers between passes, and the exit test
+// ORs over the cluster.
+template <bool SROUTES, int V, bool LANES, bool CLUSTER>
 __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
   static_assert(!LANES || (V == 4 && !SROUTES), "the per-lane path: 4 columns, device routes");
+  static_assert(!CLUSTER || LANES, "clusters on the per-lane path");
   constexpr int BITS = LANES ? 4 : 8;
   using C = Cols<V, BITS>;
   using Route = std::conditional_t<
-      LANES, GlobalRoutes16, std::conditional_t<SROUTES, SharedRoutes, GlobalRoutes>>;
+      CLUSTER, ClusterRoutes,
+      std::conditional_t<LANES, GlobalRoutes16,
+                         std::conditional_t<SROUTES, SharedRoutes, GlobalRoutes>>>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int bt = p.bt;
-  const int b0 = blockIdx.x * bt;
+  const int b0 = (CLUSTER ? int(blockIdx.x) / p.cluster : int(blockIdx.x)) * bt;
   const int rb = C::bytes(bt);
   int* unsat = reinterpret_cast<int*>(smem);  // [2][bt], by body parity
   uint8_t* A = smem + 2 * sizeof(int) * bt;   // CN view [n_edges][rb]
@@ -520,6 +649,28 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
   uint8_t* L = smem + lane_offset(p);
   if constexpr (LANES) TV = L;
   uint16_t* R = reinterpret_cast<uint16_t*>(smem + route_offset(p));  // routes, if staged
+
+  // The cluster path: this CTA's rank, its spans, and the exit flags, one a
+  // body parity, that every CTA of the cluster sets in every other.
+  uint32_t me = 0;
+  Span cn_span{0, 0}, vn_span{0, 0};
+  int* flags = nullptr;
+  if constexpr (CLUSTER) {
+    __shared__ int exit_flags[2];
+    flags = exit_flags;
+    me = cluster::rank();
+    const int* vn_split = p.split + p.cluster + 1;
+    cn_span = {__ldg(&p.split[me]), __ldg(&p.split[me + 1])};
+    vn_span = {__ldg(&vn_split[me]), __ldg(&vn_split[me + 1])};
+    if (threadIdx.x == 0) flags[0] = 0;
+  }
+  // A block barrier, or a cluster barrier where passes store into other CTAs.
+  const auto sync = [] {
+    if constexpr (CLUSTER)
+      cluster::sync();
+    else
+      __syncthreads();
+  };
 
   const int cn_stage = p.n_cn_slots * p.slot;
   const int vn_stage = p.n_vn_slots * p.slot;
@@ -582,7 +733,10 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
     }
   };
   Route cn_route, vn_route;
-  if constexpr (LANES) {
+  if constexpr (CLUSTER) {
+    cn_route = Route{p.cn_route_cl};
+    vn_route = Route{p.vn_route_cl};
+  } else if constexpr (LANES) {
     cn_route = Route{p.cn_route16};
     vn_route = Route{p.vn_route16};
   } else if constexpr (SROUTES) {
@@ -603,8 +757,13 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
     copy(0);
     if (last >= 1) copy(1);
   }
-  seed_rows<V, BITS>(p, A, p.seed_var, p.n_edges, b0, w);
-  seed_rows<V, BITS>(p, CHG, p.node_var, p.n_vars, b0, w);
+  if constexpr (CLUSTER) {  // the rows of this CTA's own nodes
+    seed_checks<V, BITS>(p, A, b0, w, cn_span);
+    seed_rows<V, BITS>(p, CHG, p.node_var, vn_span.lo, vn_span.hi, b0, w);
+  } else {
+    seed_rows<V, BITS>(p, A, p.seed_var, 0, p.n_edges, b0, w);
+    seed_rows<V, BITS>(p, CHG, p.node_var, 0, p.n_vars, b0, w);
+  }
   if constexpr (LANES) {
     copy_wait();
     __syncthreads();
@@ -613,29 +772,41 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
     stage(TC, p.cn_tab, cn_stage);
     stage(MC, p.match_cn, mc_stage);
   }
-  __syncthreads();
+  sync();  // on the cluster path also: every CTA has started before any store into it
   begin(0);
   for (int c = threadIdx.x; c < bt; c += blockDim.x) unsat[c] = 0;
-  cn_pass<V, BITS>(p, A, B, cn_lut0, MC, cn_route, nullptr, w);
+  cn_pass<CLUSTER, V, BITS>(p, A, B, cn_lut0, MC, cn_route, nullptr, w, cn_span);
   end(0);
-  __syncthreads();
+  sync();
 
   int iters = 0;
   for (int i = 0; i < p.imax - 1; ++i) {
     int* u = unsat + (i & 1) * bt;
     begin(2 * i + 1);
-    vn_pass<V, BITS>(p, B, A, CHG, vn_lut, MV, vn_route, w);
+    vn_pass<CLUSTER, V, BITS>(p, B, A, CHG, vn_lut, MV, vn_route, w, vn_span);
     end(2 * i + 1);
-    __syncthreads();
+    sync();
     begin(2 * i + 2);
     // The other buffer is the next body's: this body's counts stay for the
     // report.
     for (int c = threadIdx.x; c < bt; c += blockDim.x) unsat[((i + 1) & 1) * bt + c] = 0;
-    const bool odd = cn_pass<V, BITS>(p, A, B, cn_lut, MC, cn_route, u, w);
+    if constexpr (CLUSTER)
+      if (threadIdx.x == 0) flags[(i + 1) & 1] = 0;
+    const bool odd = cn_pass<CLUSTER, V, BITS>(p, A, B, cn_lut, MC, cn_route, u, w, cn_span);
     end(2 * i + 2);
     iters = i + 1;
-    // The predicate is OR-ed over the block: every thread takes the same branch.
-    if (!__syncthreads_or(odd) && p.early_exit) break;
+    if constexpr (CLUSTER) {
+      // The OR over the cluster: a warp with an odd count sets this body's
+      // flag in every CTA; after the barrier every CTA reads the same word,
+      // so every thread of the cluster takes the same branch.
+      if (__any_sync(~0u, odd) && (threadIdx.x & 31) == 0)
+        for (int r = 0; r < p.cluster; ++r) cluster::store(cluster::map(&flags[i & 1], r), 1u);
+      sync();
+      if (!*reinterpret_cast<volatile int*>(&flags[i & 1]) && p.early_exit) break;
+    } else {
+      // The predicate is OR-ed over the block: every thread takes the same branch.
+      if (!__syncthreads_or(odd) && p.early_exit) break;
+    }
   }
 
   // Per-block path: TV holds the VN tables of iteration `iters`, staged
@@ -645,17 +816,35 @@ __global__ void __launch_bounds__(kThreads<V>) ib_lut_fused_kernel(Params p) {
     stage(TV, p.vn_tab + size_t(iters) * vn_stage, vn_stage);
     __syncthreads();
   }
-  decide_pass<V, BITS>(p, B, CHG, ib_lut::Luts{TV, p.slot, p.t_decoder}, b0, w);
-  for (int c = threadIdx.x; c < bt; c += blockDim.x) {
-    if (b0 + c >= p.batch) continue;
-    p.unsat_out[b0 + c] = iters == 0 ? 1 : unsat[((iters - 1) & 1) * bt + c];
-    p.iters_out[b0 + c] = iters;
+  decide_pass<CLUSTER, V, BITS>(p, B, CHG, ib_lut::Luts{TV, p.slot, p.t_decoder}, b0, w, vn_span);
+  if constexpr (CLUSTER) {
+    // Rank 0 reports the counts, summed over the cluster's CTAs (exact in
+    // any order); no CTA leaves while another may still read its memory.
+    if (me == 0)
+      for (int c = threadIdx.x; c < bt; c += blockDim.x) {
+        if (b0 + c >= p.batch) continue;
+        int sum = 1;
+        if (iters) {
+          const int* own = unsat + ((iters - 1) & 1) * bt + c;
+          sum = *own;
+          for (int r = 1; r < p.cluster; ++r) sum += int(cluster::load(cluster::map(own, r)));
+        }
+        p.unsat_out[b0 + c] = sum;
+        p.iters_out[b0 + c] = iters;
+      }
+    sync();
+  } else {
+    for (int c = threadIdx.x; c < bt; c += blockDim.x) {
+      if (b0 + c >= p.batch) continue;
+      p.unsat_out[b0 + c] = iters == 0 ? 1 : unsat[((iters - 1) & 1) * bt + c];
+      p.iters_out[b0 + c] = iters;
+    }
   }
 }
 
 template <bool SROUTES, int V, bool LANES>
 int launch(const Params& p, cudaStream_t stream) {
-  const auto kernel = ib_lut_fused_kernel<SROUTES, V, LANES>;
+  const auto kernel = ib_lut_fused_kernel<SROUTES, V, LANES, false>;
   const size_t smem = shared_bytes(p);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
@@ -673,12 +862,43 @@ int launch_v(const Params& p, cudaStream_t stream) {
                        : launch<SROUTES, 1, false>(p, stream);
 }
 
+// The per-lane path's launch on clusters of p.cluster CTAs, a cluster a tile
+// (cudaLaunchKernelEx with the cluster's dimension), or, given `active`, the
+// query of how many such clusters the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+int launch_cluster(const Params& p, cudaStream_t stream, int* active) {
+  if (p.cluster < 2 || p.cluster > kMaxCluster || !lanes_fit(p)) return int(cudaErrorInvalidValue);
+  const auto kernel = ib_lut_fused_kernel<false, 4, true, true>;
+  const size_t smem = shared_bytes(p);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const int lanes = p.bt / 4;
+  if (lanes > kThreads<4>) return int(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr{};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = unsigned(p.cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config{};
+  const int tiles = active ? 1 : (p.batch + p.bt - 1) / p.bt;
+  config.gridDim = dim3(unsigned(tiles * p.cluster));
+  config.blockDim = dim3(unsigned(kThreads<4> / lanes * lanes));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  if (active) return int(cudaOccupancyMaxActiveClusters(active, kernel, &config));
+  return int(cudaLaunchKernelEx(&config, kernel, p));
+}
+
 }  // namespace
 
 extern "C" {
 
-// Decodes `batch` codewords in tiles of `bt`, one CTA per tile, on `stream`.
-// Returns the cudaError_t of the attribute call or of the launch.
+// Decodes `batch` codewords in tiles of `bt`, one CTA per tile, or on the
+// per-lane path a cluster of `cluster` CTAs per tile, on `stream`. Returns
+// the cudaError_t of the attribute call or of the launch.
 int ib_lut_fused_decode(const int32_t* clusters, int32_t* outputs, int32_t* unsat_out,
                         int32_t* iters_out, const uint8_t* cn_tab, const uint8_t* vn_tab,
                         const uint8_t* match_cn, const uint8_t* match_vn,
@@ -686,27 +906,59 @@ int ib_lut_fused_decode(const int32_t* clusters, int32_t* outputs, int32_t* unsa
                         const int32_t* cn_route, const int32_t* vn_route,
                         const uint16_t* cn_route16, const uint16_t* vn_route16,
                         const uint32_t* lane_cn, const uint32_t* lane_vn,
-                        const int32_t* cn_groups, const int32_t* vn_groups,
-                        int n_cn_groups, int n_vn_groups, int n_vars, int n_edges,
-                        int batch, int bt, int t_channel, int t_decoder,
-                        int n_cn_slots, int n_vn_slots, int slot, int d_c_max,
-                        int d_v_max, int imax, int early_exit, void* stream) {
-  Params p{clusters,    outputs,     unsat_out,  iters_out,  cn_tab,      vn_tab,
-           match_cn,    match_vn,    seed_var,   node_var,   cn_route,    vn_route,
-           cn_route16,  vn_route16,  lane_cn,    lane_vn,    cn_groups,   vn_groups,
-           n_cn_groups, n_vn_groups, n_vars,     n_edges,    batch,       bt,
-           t_channel,   t_decoder,   n_cn_slots, n_vn_slots, slot,        d_c_max,
-           d_v_max,     imax,        early_exit};
+                        const uint32_t* cn_route_cl, const uint32_t* vn_route_cl,
+                        const int32_t* split, const int32_t* cn_groups,
+                        const int32_t* vn_groups, int n_cn_groups, int n_vn_groups, int n_vars,
+                        int n_edges, int batch, int bt, int t_channel, int t_decoder,
+                        int n_cn_slots, int n_vn_slots, int slot, int d_c_max, int d_v_max,
+                        int imax, int early_exit, int cluster, void* stream) {
+  Params p{clusters,    outputs,     unsat_out,   iters_out,   cn_tab,      vn_tab,
+           match_cn,    match_vn,    seed_var,    node_var,    cn_route,    vn_route,
+           cn_route16,  vn_route16,  lane_cn,     lane_vn,     cn_route_cl, vn_route_cl,
+           split,       cn_groups,   vn_groups,   n_cn_groups, n_vn_groups, n_vars,
+           n_edges,     batch,       bt,          t_channel,   t_decoder,   n_cn_slots,
+           n_vn_slots,  slot,        d_c_max,     d_v_max,     imax,        early_exit,
+           cluster};
   if (bt < 1) return int(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (cluster != 1) {
+    if (cn_route_cl == nullptr || split == nullptr) return int(cudaErrorInvalidValue);
+    return launch_cluster(p, s, nullptr);
+  }
   if (lanes_fit(p)) return launch<false, 4, true>(p, s);
   return routes_fit(p) ? launch_v<true>(p, s) : launch_v<false>(p, s);
+}
+
+// Writes to `active` the clusters of `cluster` CTAs that the card holds at
+// once on the per-lane path at K1's carve for this layout and tile (the
+// arguments as the decode's). Returns the cudaError_t of the query.
+int ib_lut_fused_max_clusters(const uint32_t* lane_cn, const uint16_t* cn_route16, int n_vars,
+                              int n_edges, int bt, int t_channel, int t_decoder, int n_cn_slots,
+                              int n_vn_slots, int slot, int d_c_max, int d_v_max, int cluster,
+                              int* active) {
+  Params p{};
+  p.lane_cn = lane_cn;
+  p.cn_route16 = cn_route16;
+  p.n_vars = n_vars;
+  p.n_edges = n_edges;
+  p.bt = bt;
+  p.t_channel = t_channel;
+  p.t_decoder = t_decoder;
+  p.n_cn_slots = n_cn_slots;
+  p.n_vn_slots = n_vn_slots;
+  p.slot = slot;
+  p.d_c_max = d_c_max;
+  p.d_v_max = d_v_max;
+  p.cluster = cluster;
+  if (bt < 1) return int(cudaErrorInvalidValue);
+  return launch_cluster(p, nullptr, active);
 }
 
 int ib_lut_fused_max_degree() { return kMaxDegree; }
 int ib_lut_fused_threads_v4() { return kThreads<4>; }
 int ib_lut_fused_threads_v1() { return kThreads<1>; }
 int ib_lut_fused_lane_bytes() { return int(kLaneBytes); }
+int ib_lut_fused_max_cluster() { return kMaxCluster; }
 
 const char* ib_lut_fused_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -119,15 +119,18 @@ class CLibrary:
 
 class KernelLibrary(CLibrary):
     """The C interface of a decoder library of ``csrc/``: ``<name>_decode``
-    returning a cudaError_t, ``<name>_error_string``, and per constant of the
+    returning a cudaError_t, ``<name>_error_string``, any other C functions
+    in ``functions`` (as :class:`CLibrary`'s), and per constant of the
     wrapper (``max_degree`` and any in ``constants``) a function
     ``<name>_<constant>`` returning the source's value, which must equal it."""
 
-    def __init__(self, name: str, decode_argtypes: list, max_degree: int, **constants: int):
+    def __init__(self, name: str, decode_argtypes: list, max_degree: int,
+                 functions: dict[str, list] | None = None, **constants: int):
         constants = {"max_degree": max_degree, **constants}
         super().__init__(
             name,
-            {f"{name}_decode": decode_argtypes, **{f"{name}_{c}": [] for c in constants}},
+            {f"{name}_decode": decode_argtypes, **(functions or {}),
+             **{f"{name}_{c}": [] for c in constants}},
         )
         for c, want in constants.items():
             got = self.value(f"{name}_{c}")

@@ -8,7 +8,10 @@ views at 4 bits and the pairwise tables of the passes copied per lane
 (:func:`lane_words`), else the views as bytes, one table copy per block and
 the routes in shared memory as uint16 where they fit,
 :func:`kernel_shared_bytes`; each pass walked flat over its degree groups by
-threads of :func:`columns_per_thread` codeword columns);
+threads of :func:`columns_per_thread` codeword columns; on the per-lane path,
+where a launch has too few tiles to fill the card, a tile on a thread-block
+cluster of :func:`cluster_size` CTAs, each walking its share of the nodes,
+:func:`cluster_arrays`);
 for a CPU tensor it runs the plain twin
 :func:`ib_lut_decode_tiled`, which applies the whole-batch decoder to each
 zero-padded tile. The two agree bit for bit: outputs, per-codeword
@@ -43,6 +46,9 @@ LANE_POSITIONS = 16
 LANE_ENTRIES = 256
 LANE_BYTES = LANE_POSITIONS // 4 * LANE_ENTRIES * 128
 LANE_MAX_T = 16
+# The per-lane path's thread-block clusters: the CTAs a tile may take besides
+# one, largest first (at most kMaxCluster in csrc/ib_lut_fused.cu).
+CLUSTER_SIZES = (4, 3, 2)
 
 
 def _slot(t_channel: int, t_decoder: int) -> int:
@@ -149,6 +155,82 @@ def kernel_shared_bytes(
     if layout.n_edges <= 65536 and routes <= MAX_SHARED_BYTES:
         return K1Carve(routes, True, False)
     return K1Carve(carve, False, False)
+
+
+def cluster_size(tiles: int, active: dict[int, int]) -> int:
+    """CTAs a tile of a per-lane launch runs on: the largest c of
+    :data:`CLUSTER_SIZES` at which the launch's ``tiles``, a cluster of c
+    CTAs each, do not exceed the clusters the card holds at once
+    (``active[c]``, ``cudaOccupancyMaxActiveClusters`` at K1's carve), so
+    that every tile runs in the first wave; else 1, a CTA a tile."""
+    return next((c for c in CLUSTER_SIZES if tiles <= active.get(c, 0)), 1)
+
+
+def node_lookups(layout: DecodeLayout, kind: str) -> np.ndarray:
+    """Lookups of each node of the CN ('cn') or VN ('vn') pass in K1's flat
+    walk order, with alignment (``utils/roofline.py``
+    ``ib_lookup_counts``): a check of degree d (d-2)(d+3)/2 pairwise and d
+    alignment lookups, a variable (d-1)(d+2)/2 and d; a degree-1 variable
+    counts 1, its forwarded channel's store."""
+    if kind == "cn":
+        cost = [(g.degree - 2) * (g.degree + 3) // 2 + g.degree for g in layout.cn_groups]
+        groups = layout.cn_groups
+    else:
+        cost = [(g.degree - 1) * (g.degree + 2) // 2 + g.degree for g in layout.vn_groups]
+        groups = layout.vn_groups
+    return np.repeat(np.asarray(cost, np.int64), [g.num_nodes for g in groups])
+
+
+def cluster_split(layout: DecodeLayout, cluster: int) -> np.ndarray:
+    """[2, cluster + 1] int32: rank r of a cluster walks the checks
+    split[0, r] .. split[0, r + 1] - 1 and the variables split[1, r] ..
+    split[1, r + 1] - 1, in K1's flat walk order. Each pass's shares are
+    contiguous and balanced by lookups (:func:`node_lookups`): boundary r is
+    the node boundary nearest to r / cluster of the pass's lookups."""
+    split = np.zeros((2, cluster + 1), np.int32)
+    for k, kind in enumerate(("cn", "vn")):
+        cum = np.concatenate([[0], np.cumsum(node_lookups(layout, kind))])
+        for r in range(1, cluster):
+            target = cum[-1] * r / cluster
+            i = int(np.searchsorted(cum, target))
+            if target - cum[i - 1] <= cum[i] - target:
+                i -= 1
+            split[k, r] = max(i, split[k, r - 1])
+        split[k, cluster] = len(cum) - 1
+    return split
+
+
+def _row_nodes(groups) -> np.ndarray:
+    """The node (flat walk index) of each view row: a group's row
+    offset + k * num_nodes + ln belongs to its node ln."""
+    rows = np.zeros(sum(g.num_nodes * g.degree for g in groups), np.int64)
+    first = 0
+    for g in groups:
+        rows[g.offset : g.offset + g.degree * g.num_nodes] = np.tile(
+            first + np.arange(g.num_nodes), g.degree)
+        first += g.num_nodes
+    return rows
+
+
+def cluster_arrays(layout: DecodeLayout, cluster: int) -> dict[str, np.ndarray]:
+    """K1's arguments on clusters of ``cluster`` CTAs: ``split``
+    (:func:`cluster_split`) and the routes as uint32, the row in the low 16
+    bits and above them the rank that walks the row's node, which holds the
+    row: a CN-view row's route names a VN-view row, whose variable's rank
+    holds it, and a VN-view row's a CN-view row of a check."""
+    split = cluster_split(layout, cluster)
+    arrays = layout_arrays(layout)
+    owner = {}
+    for k, (kind, groups) in enumerate((("cn", layout.cn_groups), ("vn", layout.vn_groups))):
+        rank = np.searchsorted(split[k], np.arange(split[k, -1]), side="right") - 1
+        owner[kind] = rank[_row_nodes(groups)]
+    cn_route = arrays["cn_route"].astype(np.int64)  # to VN-view rows
+    vn_route = arrays["vn_route"].astype(np.int64)  # to CN-view rows
+    return dict(
+        split=split.reshape(-1),
+        cn_route_cl=(cn_route | owner["vn"][cn_route] << 16).astype(np.uint32),
+        vn_route_cl=(vn_route | owner["cn"][vn_route] << 16).astype(np.uint32),
+    )
 
 
 def pick_batch_tile(
@@ -311,9 +393,11 @@ def device_arrays(arrays: dict[str, np.ndarray], device: torch.device) -> dict:
 class FusedIBDecoder:
     """Tiled IB decoder: clusters [n_vars, batch] int32 -> DecodeResult.
 
-    ``batch_tile`` codewords share one CTA and exit together; the default is
-    the largest tile that fits shared memory. ``launches`` counts kernel
-    launches (the CPU twin does not count).
+    ``batch_tile`` codewords share one CTA, or on the per-lane path one
+    thread-block cluster of CTAs, and exit together; the default is the
+    largest tile that fits shared memory. ``launches`` counts kernel
+    launches (the CPU twin does not count), ``cluster_launches`` those on
+    clusters, and ``cluster`` is the CTAs a tile of the last launch took.
     """
 
     def __init__(
@@ -349,8 +433,12 @@ class FusedIBDecoder:
             batch_tile = pick_batch_tile(layout, Tch, T)
         self.batch_tile = int(batch_tile)
         self.launches = 0
+        self.cluster_launches = 0
+        self.cluster = 1
         self._trellis: dict[torch.device, DeviceTrellis] = {}
         self._kernel_args: dict[torch.device, dict] = {}
+        self._clusters: dict[tuple[torch.device, int], int] = {}
+        self._cluster_args: dict[tuple[torch.device, int], dict] = {}
 
     def __call__(self, channel_clusters: torch.Tensor) -> DecodeResult:
         device = channel_clusters.device
@@ -438,7 +526,27 @@ class FusedIBDecoder:
             self._kernel_args[device] = device_arrays(self.host_arrays(), device)
         return self._kernel_args[device]
 
-    def _launch(self, channel_clusters: torch.Tensor) -> DecodeResult:
+    def _cluster_for(self, device: torch.device, batch: int) -> int:
+        """The CTAs a tile takes at ``batch``: :func:`cluster_size` on the
+        per-lane path, with the card's counts queried once per device and
+        carve; else 1. Cached per device and batch."""
+        key = (device, batch)
+        if key not in self._clusters:
+            t, lay, bt = self.tables, self.layout, self.batch_tile
+            tch, tdec = t.cardinality_t_channel, t.cardinality_t_decoder
+            c = 1
+            if kernel_shared_bytes(lay, bt, tch, tdec).lanes:
+                active = _max_active_clusters(device.index, lay.n_vars, lay.n_edges, bt, tch,
+                                              tdec, lay.d_c_max, lay.d_v_max)
+                c = cluster_size(-(-batch // bt), active)
+            self._clusters[key] = c
+        return self._clusters[key]
+
+    def _launch(self, channel_clusters: torch.Tensor, cluster: int | None = None) -> DecodeResult:
+        """Launches K1; ``cluster`` overrides the CTAs a tile (1, or a size
+        of :data:`CLUSTER_SIZES` where the tile runs on per-lane tables),
+        which the launch otherwise chooses from the card
+        (:meth:`_cluster_for`)."""
         lay = self.layout
         check_channel_input(channel_clusters, torch.int32, lay, "channel clusters")
         bt = self.batch_tile
@@ -451,6 +559,12 @@ class FusedIBDecoder:
         ch = channel_clusters.contiguous()
         batch = ch.shape[1]
         a = self._args(device)
+        c = self._cluster_for(device, batch) if cluster is None else cluster
+        cl = {}
+        if c > 1:
+            if (device, c) not in self._cluster_args:
+                self._cluster_args[device, c] = device_arrays(cluster_arrays(lay, c), device)
+            cl = self._cluster_args[device, c]
         out = torch.empty((lay.n_vars, batch), dtype=torch.int32, device=device)
         unsat = torch.empty(batch, dtype=torch.int32, device=device)
         iters = torch.empty(batch, dtype=torch.int32, device=device)
@@ -458,7 +572,7 @@ class FusedIBDecoder:
         optional = [
             a[k].data_ptr() if k in a else None
             for k in ("cn_route16", "vn_route16", "lane_cn", "lane_vn")
-        ]
+        ] + [cl[k].data_ptr() if cl else None for k in ("cn_route_cl", "vn_route_cl", "split")]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             _library().decode(
@@ -473,10 +587,12 @@ class FusedIBDecoder:
                 t.cardinality_t_channel, t.cardinality_t_decoder,
                 max(lay.d_c_max - 2, 1), lay.d_v_max,
                 _slot(t.cardinality_t_channel, t.cardinality_t_decoder),
-                lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit),
+                lay.d_c_max, lay.d_v_max, self.imax, int(self.early_exit), c,
                 stream,
             )
         self.launches += 1
+        self.cluster = c
+        self.cluster_launches += int(c > 1)
         return DecodeResult(
             outputs=out,
             iterations=mean_iterations(iters),
@@ -491,12 +607,39 @@ def make_fused_ib_decoder(layout: DecodeLayout, tables: TrellisTables, **kw) -> 
 
 
 @functools.cache
+def _max_active_clusters(device_index: int, n_vars: int, n_edges: int, batch_tile: int,
+                         t_channel: int, t_decoder: int, d_c_max: int,
+                         d_v_max: int) -> dict[int, int]:
+    """The clusters of each size of :data:`CLUSTER_SIZES` that card
+    ``device_index`` holds at once with K1's per-lane carve for this layout
+    and tile (``ib_lut_fused_max_clusters``: cudaOccupancyMaxActiveClusters),
+    queried once per device and carve."""
+    lib = _library()
+    # Non-null stand-ins: the query reads only whether the per-lane
+    # arguments exist.
+    some = ctypes.c_void_p(1)
+    active = {}
+    with torch.cuda.device(device_index):
+        for c in CLUSTER_SIZES:
+            n = ctypes.c_int()
+            lib.launch(
+                "ib_lut_fused_max_clusters", some, some, n_vars, n_edges, batch_tile,
+                t_channel, t_decoder, max(d_c_max - 2, 1), d_v_max,
+                _slot(t_channel, t_decoder), d_c_max, d_v_max, c, ctypes.byref(n),
+            )
+            active[c] = n.value
+    return active
+
+
+@functools.cache
 def _library():
     """K1's library, built at first use."""
     from ._build import KernelLibrary
 
     p, i = ctypes.c_void_p, ctypes.c_int
     return KernelLibrary(
-        "ib_lut_fused", [p] * 18 + [i] * 15 + [p], MAX_DEGREE,
+        "ib_lut_fused", [p] * 21 + [i] * 16 + [p], MAX_DEGREE,
+        functions={"ib_lut_fused_max_clusters": [p, p] + [i] * 11 + [ctypes.POINTER(i)]},
         threads_v4=THREADS[4], threads_v1=THREADS[1], lane_bytes=LANE_BYTES,
+        max_cluster=max(CLUSTER_SIZES),
     )

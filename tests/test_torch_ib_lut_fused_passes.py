@@ -24,6 +24,14 @@ arrays (``FusedIBDecoder.host_arrays``) through K1's addressing. It must
 equal the plain twin ``ib_lut_decode_tiled``, and on the 96-variable QC code
 the JAX package's ``FusedIBDecoder`` in interpret mode. Inputs are made with
 numpy from a seed; every comparison is exact.
+
+On the per-lane path a tile may run on a thread-block cluster of c CTAs
+(``cluster_size``): rank r walks its span of the checks and of the
+variables (``cluster_split``) and holds only their view rows, and every
+routed output goes to the rank that the packed route names
+(``cluster_arrays``). The model then keeps one memory per rank, every row
+it does not hold out of range, so a read of a row that its rank was never
+sent fails.
 """
 
 import dataclasses
@@ -77,10 +85,12 @@ CONFIGS = "results/configs"
 # -- the schedule -------------------------------------------------------------
 
 
-def k1_walk(layout, batch_tile: int, kind: str) -> dict[str, np.ndarray]:
+def k1_walk(layout, batch_tile: int, kind: str, span: tuple[int, int] | None = None
+            ) -> dict[str, np.ndarray]:
     """K1's nodes of one pass ('cn', 'vn' or 'decide') in the order each
     thread meets them: per record the thread, its first column c0, the
-    group and the node's index in its group."""
+    group and the node's index in its group; on a cluster, the nodes of the
+    CTA's ``span`` (flat indices lo .. hi - 1)."""
     v = k1.columns_per_thread(batch_tile)
     lanes = batch_tile // v
     threads = k1.threads_per_cta(batch_tile)
@@ -89,13 +99,14 @@ def k1_walk(layout, batch_tile: int, kind: str) -> dict[str, np.ndarray]:
     nodes = np.asarray(
         [(gi, ln) for gi, g in enumerate(groups) for ln in range(g.num_nodes)], dtype=np.int64
     )
+    lo, hi = span if span is not None else (0, len(nodes))
     rec = []
     for t in range(threads):
         # One division per thread and launch; the nodes step by q, flat
         # over the groups.
-        mine = np.arange(t // lanes, len(nodes), q)
+        mine = np.arange(lo + t // lanes, hi, q)
         rec.append(np.column_stack([np.full((len(mine), 2), [t, t % lanes * v]), nodes[mine]]))
-    rec = np.concatenate(rec)
+    rec = np.concatenate(rec).reshape(-1, 4)
     return dict(thread=rec[:, 0], c0=rec[:, 1], group=rec[:, 2], ln=rec[:, 3])
 
 
@@ -151,9 +162,12 @@ def spread_stage(mem: torch.Tensor, stage: np.ndarray, group0: int, groups: int,
     return torch.as_tensor(rows.astype(np.int64))
 
 
-def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
-    """K1's passes in plain torch, one zero-padded tile at a time: the decode
-    result and each tile's passes in order."""
+FAR = 1 << 20  # a row a rank does not hold: out of range of every table
+
+
+def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor, cluster: int = 1):
+    """K1's passes in plain torch, one zero-padded tile at a time, each tile
+    on ``cluster`` CTAs: the decode result and each tile's passes in order."""
     lay, bt = dec.layout, dec.batch_tile
     t = dec.tables
     T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
@@ -161,15 +175,28 @@ def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
     a = {k: torch.as_tensor(v.astype(np.int64)) for k, v in host.items()}
     carve = k1.kernel_shared_bytes(lay, bt, Tch, T)
     assert ("lane_cn" in host) == carve.lanes
-    if carve.shared_routes or carve.lanes:  # the kernel reads the uint16 copies
-        routes = {"cn": a["cn_route16"], "vn": a["vn_route16"]}
+    if cluster > 1:  # the packed routes: the row, and the rank that holds it
+        assert carve.lanes
+        cl = k1.cluster_arrays(lay, cluster)
+        split = cl["split"].reshape(2, cluster + 1)
+        packed = {k: torch.as_tensor(cl[f"{k}_route_cl"].astype(np.int64)) for k in ("cn", "vn")}
+        routes = {k: r & 0xFFFF for k, r in packed.items()}
+        owners = {k: r >> 16 for k, r in packed.items()}
+        assert all(torch.equal(routes[k], a[f"{k}_route16"]) for k in ("cn", "vn"))
     else:
-        routes = {"cn": a["cn_route"], "vn": a["vn_route"]}
+        split = np.asarray([[0, sum(g.num_nodes for g in lay.cn_groups)], [0, lay.n_vars]])
+        if carve.shared_routes or carve.lanes:  # the kernel reads the uint16 copies
+            routes = {"cn": a["cn_route16"], "vn": a["vn_route16"]}
+        else:
+            routes = {"cn": a["cn_route"], "vn": a["vn_route"]}
+        owners = {k: torch.zeros_like(r) for k, r in routes.items()}
     if carve.lanes:
         mem = torch.zeros(k1.LANE_BYTES, dtype=torch.int64)
         cn_groups, vn_group0 = k1.lane_groups(lay)
     v = k1.columns_per_thread(bt)
-    walks = {kind: k1_walk(lay, bt, kind) for kind in ("cn", "vn", "decide")}
+    spans = {"cn": split[0], "vn": split[1], "decide": split[1]}
+    walks = {(r, kind): k1_walk(lay, bt, kind, (spans[kind][r], spans[kind][r + 1]))
+             for r in range(cluster) for kind in spans}
     node_offsets = np.cumsum([0] + [g.num_nodes for g in lay.vn_groups])
 
     def luts(kind, stage, n, stride, thread):
@@ -178,42 +205,47 @@ def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
         lane = torch.as_tensor(thread % 32)[:, None]
         return [LaneLut(mem, lane_position(kind, s), stride, lane) for s in range(n)]
 
-    def records(kind, gi):
-        w = walks[kind]
+    def records(r, kind, gi):
+        w = walks[r, kind]
         sel = w["group"] == gi
         ln = torch.as_tensor(w["ln"][sel])
         cols = torch.as_tensor(w["c0"][sel])[:, None] + torch.arange(v)  # [R, V]
         return ln, cols, w["thread"][sel]
 
-    def write(dst, rows, cols, values):
+    def write(dst, kind, edges, cols, values):
+        """Routed outputs of rows ``edges`` into the view of the rank that
+        holds each route's row."""
         if carve.lanes:  # a message is 4 bits of the view
-            assert int(values.max()) < 16
-        dst[rows, cols] = values
+            assert bool((values < 16).all())
+        rows, owner = routes[kind][edges], owners[kind][edges]
+        for o in range(cluster):
+            sel = owner == o
+            dst[o][rows[sel][:, None], cols[sel]] = values[sel]
 
-    def cn_pass(src, dst, stage, stride, match, unsat):
+    def cn_pass(r, src, dst, stage, stride, match, unsat):
         for gi, g in enumerate(lay.cn_groups):
-            ln, cols, thread = records("cn", gi)
+            ln, cols, thread = records(r, "cn", gi)
             rows = [g.offset + k * g.num_nodes + ln for k in range(g.degree)]
-            m = torch.stack([src[r[:, None], cols] for r in rows])  # [d, R, V]
+            m = torch.stack([src[r][e[:, None], cols] for e in rows])  # [d, R, V]
             if unsat is not None:
                 odd = ((m < T // 2).sum(0) % 2).reshape(-1).to(torch.int32)
                 unsat.index_add_(0, cols.reshape(-1), odd)
             out = cn_lut_leave_one_out(m, luts("cn", stage, g.degree - 2, stride, thread))
-            for k, r in enumerate(rows):
-                write(dst, routes["cn"][r][:, None], cols, match[g.degree - 1][out[k]])
+            for k, e in enumerate(rows):
+                write(dst, "cn", e, cols, match[g.degree - 1][out[k]])
 
-    def vn_pass(src, dst, chg, stage, match):
+    def vn_pass(r, src, dst, chg, stage, match):
         for gi, g in enumerate(lay.vn_groups):
             d = g.degree
-            ln, cols, thread = records("vn", gi)
-            ch = chg[(node_offsets[gi] + ln)[:, None], cols]
+            ln, cols, thread = records(r, "vn", gi)
+            ch = chg[r][(node_offsets[gi] + ln)[:, None], cols]
             rows = [g.offset + k * g.num_nodes + ln for k in range(d)]
-            m = torch.stack([src[r[:, None], cols] for r in rows])
+            m = torch.stack([src[r][e[:, None], cols] for e in rows])
             vs = luts("vn", stage, max(d - 1, 1), T, thread)
             out = vn_lut_leave_one_out(ch, m, vs[0], vs[1:])
             for k in range(d):  # degree 1 forwards the channel, unaligned
                 val = out[k] if d == 1 else match[d - 1][out[k]]
-                write(dst, routes["vn"][rows[k]][:, None], cols, val)
+                write(dst, "vn", rows[k], cols, val)
 
     def stage(kind, i):
         """The tables of a pass of iteration i, staged during the pass before."""
@@ -224,43 +256,65 @@ def k1_passes(dec: FusedIBDecoder, clusters: torch.Tensor):
             match = rows.reshape(match.shape)
         return a[f"{kind}_tab"][i], match
 
-    def decide(src, chg, stage, b0, batch):
-        out = torch.zeros((lay.n_vars, bt), dtype=torch.int64)
+    def decide(r, src, chg, stage, out):
         for gi, g in enumerate(lay.vn_groups):
-            ln, cols, _ = records("decide", gi)
+            ln, cols, _ = records(r, "decide", gi)
             node = node_offsets[gi] + ln
-            ch = chg[node[:, None], cols]
-            m = torch.stack([src[(g.offset + k * g.num_nodes + ln)[:, None], cols]
+            ch = chg[r][node[:, None], cols]
+            m = torch.stack([src[r][(g.offset + k * g.num_nodes + ln)[:, None], cols]
                              for k in range(g.degree)])
             vs = [SlotLut(s, T) for s in stage[: g.degree]]  # one copy per block
             out[a["node_var"][node][:, None], cols] = vn_lut_full_fold(ch, m, vs[0], vs[1:])
-        return out
+
+    def seed(x):
+        """Each rank's views and channel: the CN-view rows of its checks and
+        the channel rows of its variables seeded, every other row out of
+        range."""
+        A = torch.full((cluster, lay.n_edges, bt), FAR, dtype=torch.int64)
+        chg = torch.full((cluster, lay.n_vars, bt), FAR, dtype=torch.int64)
+        for r in range(cluster):
+            w = walks[r, "cn"]
+            for gi, g in enumerate(lay.cn_groups):
+                ln = torch.as_tensor(w["ln"][w["group"] == gi])
+                for k in range(g.degree):
+                    rows = g.offset + k * g.num_nodes + ln
+                    A[r, rows] = x[a["seed_var"][rows]]
+            lo, hi = split[1, r], split[1, r + 1]
+            chg[r, lo:hi] = x[a["node_var"][lo:hi]]
+        return A, torch.full_like(A, FAR), chg
 
     batch = clusters.shape[1]
     pad = (-batch) % bt
     padded = torch.nn.functional.pad(clusters.to(torch.int64), (0, pad))
     outs, unsats, per_codeword, traces = [], [], [], []
+    ranks = range(cluster)
     for b0 in range(0, batch + pad, bt):
-        x = padded[:, b0 : b0 + bt]
-        A, B = x[a["seed_var"]], torch.zeros((lay.n_edges, bt), dtype=torch.int64)
-        chg = x[a["node_var"]]
+        A, B, chg = seed(padded[:, b0 : b0 + bt])
         tc, mc = stage("cn", 0)
         tv, mv = stage("vn", 0)  # staged during the next pass: the other bytes
-        cn_pass(A, B, tc, Tch, mc, None)
-        unsat = torch.zeros((2, bt), dtype=torch.int32)
+        for r in ranks:
+            cn_pass(r, A, B, tc, Tch, mc, None)
+        unsat = torch.zeros((cluster, 2, bt), dtype=torch.int32)
         trace, iters = ["cn0"], 0
         for i in range(dec.imax - 1):
             tc, mc = stage("cn", i + 1)
-            vn_pass(B, A, chg, tv, mv)
+            for r in ranks:
+                vn_pass(r, B, A, chg, tv, mv)
             tv, mv = stage("vn", i + 1)
-            unsat[(i + 1) & 1] = 0
-            cn_pass(A, B, tc, T, mc, unsat[i & 1])
+            unsat[:, (i + 1) & 1] = 0
+            for r in ranks:
+                cn_pass(r, A, B, tc, T, mc, unsat[r, i & 1])
             trace += ["vn", "cn"]
             iters = i + 1
-            if dec.early_exit and not bool((unsat[i & 1] > 0).any()):  # the barrier's OR
+            # The barrier's OR, over the block or the cluster.
+            if dec.early_exit and not bool((unsat[:, i & 1] > 0).any()):
                 break
-        outs.append(decide(B, chg, tv, b0, batch))
-        unsats.append(torch.ones(bt, dtype=torch.int32) if iters == 0 else unsat[(iters - 1) & 1])
+        out = torch.zeros((lay.n_vars, bt), dtype=torch.int64)
+        for r in ranks:
+            decide(r, B, chg, tv, out)
+        outs.append(out)
+        unsats.append(torch.ones(bt, dtype=torch.int32) if iters == 0
+                      else unsat[:, (iters - 1) & 1].sum(0, dtype=torch.int32))
         per_codeword.append(torch.full((bt,), iters, dtype=torch.int32))
         traces.append(trace)
     result = DecodeResult(
@@ -438,6 +492,42 @@ def test_k1_passes_on_regular_8000_read_int32_routes():
     assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 4, 3))
 
 
+@pytest.mark.parametrize("cluster", [2, 3, 4])
+@pytest.mark.parametrize("early_exit", [True, False])
+def test_k1_passes_on_clusters_match_the_twin(qc96, cluster, early_exit):
+    """Tiles of 8 on clusters of 2, 3 and 4 CTAs, each rank holding only its
+    nodes' rows: three tiles that leave after 2 and 3 bodies and run all 5,
+    and a padded last tile; equal to the twin and to one CTA a tile."""
+    layout, _, tabs = qc96
+    tables, _ = tabs[16]
+    ch = torch.cat([_clusters(db, 16, layout.n_vars, n, seed=s)
+                    for db, s, n in ((6.0, 0, 8), (6.0, 3, 8), (2.0, 0, 8), (5.0, 1, 5))], dim=1)
+    dec = FusedIBDecoder(layout, tables, early_exit=early_exit, batch_tile=8)
+    got, traces = k1_passes(dec, ch, cluster)
+    one, one_traces = k1_passes(dec, ch)
+    assert traces == one_traces
+    if early_exit:
+        assert [t.count("vn") for t in traces[:3]] == [2, 3, 5]
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 8,
+                                          early_exit=early_exit))
+    assert _same(got, one)
+
+
+@pytest.mark.parametrize("cluster, max_iters, early_exit",
+                         [(4, 3, True), (3, 3, True), (2, 2, False), (4, 1, True)])
+def test_k1_passes_on_clusters_on_wlan_at_its_default_tile(cluster, max_iters, early_exit):
+    """WLAN |T| = 16 at its tile of 16 on clusters (the per-lane path, 20
+    codewords: a padded last tile), each rank holding only its nodes' rows;
+    equal to the twin."""
+    layout = get_model("wlan-1296").make_layout()
+    tables = DecoderConfig.load(f"{CONFIGS}/wlan_T16_0.8.npz").tables
+    dec = FusedIBDecoder(layout, tables, max_iters=max_iters, early_exit=early_exit)
+    ch = _clusters(2.4, 16, layout.n_vars, 20, seed=cluster)
+    got, _ = k1_passes(dec, ch, cluster)
+    assert _same(got, ib_lut_decode_tiled(layout, dec.trellis("cpu"), ch, 16, max_iters,
+                                          early_exit))
+
+
 # -- the schedule's coverage --------------------------------------------------
 
 
@@ -475,6 +565,23 @@ def test_each_pass_covers_every_node_column_and_output_once(model, config, batch
     # Each thread's share of the pass differs from another's by one node.
     per_thread = np.bincount(w["thread"], minlength=k1.threads_per_cta(batch_tile))
     assert per_thread.max() - per_thread.min() <= 1
+    # On clusters, the ranks' walks together cover every
+    # (node, column) once, and write every (edge, column) once.
+    nodes = sum(g.num_nodes for g in groups)
+    for cluster in k1.CLUSTER_SIZES:
+        split = k1.cluster_split(layout, cluster)[0 if kind == "cn" else 1]
+        count = np.zeros((nodes, batch_tile), dtype=np.int64)
+        written[:] = 0
+        first = np.cumsum([0] + [g.num_nodes for g in groups])
+        for r in range(cluster):
+            wr = k1_walk(layout, batch_tile, kind, (split[r], split[r + 1]))
+            for gi, ln, c0 in zip(wr["group"], wr["ln"], wr["c0"]):
+                g = groups[gi]
+                count[first[gi] + ln, c0 : c0 + v] += 1
+                written[route[g.offset + np.arange(g.degree) * g.num_nodes + ln], c0 : c0 + v] += 1
+        assert np.all(count == 1)
+        if kind != "decide":
+            assert np.all(written == 1)
 
 
 def test_default_tiles_are_pinned():
@@ -503,6 +610,89 @@ def test_threads_keep_whole_node_rows(batch_tile, columns, threads):
     assert k1.columns_per_thread(batch_tile) == columns
     assert k1.threads_per_cta(batch_tile) == threads
     assert threads % (batch_tile // columns) == 0
+
+
+# -- thread-block clusters -----------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "tiles, active, cluster",
+    [
+        (32, {4: 32, 3: 44, 2: 66}, 4),  # the queue's batch 512: 32 tiles of 16
+        (32, {4: 30, 3: 44, 2: 66}, 3),  # an H100 SXM holds 30 clusters of 4
+        (32, {4: 31, 2: 66}, 2),
+        (32, {4: 16, 3: 31, 2: 66}, 2),
+        (64, {4: 30, 3: 44, 2: 66}, 2),  # batch 1024
+        (66, {4: 33, 3: 44, 2: 66}, 2),
+        (67, {4: 33, 3: 44, 2: 66}, 1),
+        (128, {4: 30, 3: 44, 2: 66}, 1),  # |T| = 16 at 2048
+        (256, {4: 30, 3: 44, 2: 66}, 1),  # the headline's 4096
+        (1, {4: 0, 3: 0, 2: 0}, 1),  # no cluster fits beside the carve
+    ],
+)
+def test_cluster_rule_takes_the_largest_cluster_in_one_wave(tiles, active, cluster):
+    """K1's cluster rule: the largest of 4, 3 and 2 CTAs a tile at which the
+    launch's tiles fit the clusters the card holds at once, else 1."""
+    assert k1.cluster_size(tiles, active) == cluster
+
+
+def test_cluster_rule_never_makes_a_second_wave():
+    for tiles in range(1, 300):
+        for a4 in (0, 16, 30, 32, 33):
+            for a3 in (0, 31, 44):
+                for a2 in (0, 33, 64, 66):
+                    active = {4: a4, 3: a3, 2: a2}
+                    c = k1.cluster_size(tiles, active)
+                    assert c in (1, *k1.CLUSTER_SIZES)
+                    assert c == 1 or tiles <= active[c]
+                    # No larger size fits, and 1 only where none does.
+                    assert all(tiles > active[b] for b in k1.CLUSTER_SIZES if b > c)
+
+
+@pytest.mark.parametrize("cluster", k1.CLUSTER_SIZES)
+@pytest.mark.parametrize(
+    "model, config",
+    [("wlan-1296", "wlan_T16_0.8"), ("wlan-1296", "wlan_T32_0.6"),
+     ("regular-3-6-8000", "regular_T16_1.05")],
+)
+def test_cluster_split_owns_each_node_once_and_routes_to_the_owner(model, config, cluster):
+    """Each rank of a cluster walks a contiguous share of the checks and of
+    the variables; every node is one rank's; the lookups of two ranks differ
+    by at most one node's; and every routed row goes to the rank whose walk
+    reads it (the packed rank of ``cluster_arrays``), at the row the
+    one-CTA route names."""
+    layout = get_model(model).make_layout()
+    tables = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
+    host = FusedIBDecoder(layout, tables).host_arrays()
+    arrays = k1.cluster_arrays(layout, cluster)
+    split = arrays["split"].reshape(2, cluster + 1)
+    assert arrays["cn_route_cl"].dtype == arrays["vn_route_cl"].dtype == np.uint32
+    reads = {}
+    for k, (kind, groups) in enumerate((("cn", layout.cn_groups), ("vn", layout.vn_groups))):
+        n = sum(g.num_nodes for g in groups)
+        assert split[k, 0] == 0 and split[k, -1] == n and np.all(np.diff(split[k]) > 0)
+        owner = np.repeat(np.arange(cluster), np.diff(split[k]))
+        assert len(owner) == n  # every node one rank's
+        w = k1.node_lookups(layout, kind)
+        loads = [w[split[k, r] : split[k, r + 1]].sum() for r in range(cluster)]
+        assert max(loads) - min(loads) <= w.max(), loads
+        # The view rows each rank's pass reads: the edges of its nodes.
+        rank = np.full(layout.n_edges, -1)
+        first = np.cumsum([0] + [g.num_nodes for g in groups])
+        for gi, g in enumerate(groups):
+            for ln in range(g.num_nodes):
+                rows = g.offset + np.arange(g.degree) * g.num_nodes + ln
+                assert np.all(rank[rows] == -1)
+                rank[rows] = owner[first[gi] + ln]
+        assert np.all(rank >= 0)
+        reads[kind] = rank
+    for kind, to in (("cn", "vn"), ("vn", "cn")):
+        packed = arrays[f"{kind}_route_cl"].astype(np.int64)
+        row = packed & 0xFFFF
+        if layout.n_edges <= 65536:
+            assert np.array_equal(row, host[f"{kind}_route16"])
+        assert np.array_equal(row, host[f"{kind}_route"])
+        assert np.array_equal(packed >> 16, reads[to][row])
 
 
 # -- the per-lane tables -------------------------------------------------------
@@ -581,6 +771,7 @@ def test_carve_and_tile_rule_match_the_kernel(model, config, tile, carve):
     assert consts["kLanePositions"] == k1.LANE_POSITIONS
     assert consts["kLaneEntries"] == k1.LANE_ENTRIES and consts["kLaneMaxT"] == k1.LANE_MAX_T
     assert k1.LANE_BYTES == 131_072
+    assert consts["kMaxCluster"] == max(k1.CLUSTER_SIZES)
     layout = get_model(model).make_layout()
     t = DecoderConfig.load(f"{CONFIGS}/{config}.npz").tables
     T, Tch = t.cardinality_t_decoder, t.cardinality_t_channel
